@@ -23,12 +23,16 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(CSRC, "build")
-SRCS = ["poissbin_screen.cu"]
-DEPS = ["poissbin_screen.cuh"]
-# no --use_fast_math: flush-to-zero and the approximate exp2 would change
-# the screen mask against the plain PyTorch version
+SRCS = ["poissbin_screen.cu", "baq_hmm.cu"]
+DEPS = ["poissbin_screen.cuh", "baq_hmm.cuh"]
+# no --use_fast_math: flush-to-zero and the approximate exp2/log would
+# change the screen mask and the BAQ phreds against the plain PyTorch
+# versions (the BAQ HMM clamps at the subnormal 1e-38).  -fmad=false: every
+# multiply and add rounds on its own, as in the plain versions and in the
+# CPU tests' g++ builds of the headers (-ffp-contract=off)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -99,6 +103,13 @@ def get_kernel_lib() -> ctypes.CDLL:
                 vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, vp]
             lib.lfq_screen_codes_launch.restype = ctypes.c_int
+            i64, i32 = ctypes.c_longlong, ctypes.c_int
+            lib.lfq_baq_fwd_launch.argtypes = [vp] * 7 + [i64, i32, i32,
+                                                          i32, vp]
+            lib.lfq_baq_fwd_launch.restype = ctypes.c_int
+            lib.lfq_baq_bwd_launch.argtypes = [vp] * 9 + [i64, i32, i32,
+                                                          i32, vp]
+            lib.lfq_baq_bwd_launch.restype = ctypes.c_int
             lib.lfq_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lfq_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -57,13 +57,16 @@ from ..ops.screen import (
 
 @dataclass
 class VarcallConf(_ref.VarcallConf):
-    """The reference's varcall conf, with the screen on a torch device.
+    """The reference's varcall conf, with the screen and the device BAQ
+    on a torch device.
 
-    device: where the screen runs; None = "cuda" when a card is present,
-    else "cpu" (the plain PyTorch DP).  Only tests set it, to run the
-    plain DP on a host that has a card.  Device BAQ is not ported, so
-    device_baq_on is always False and the host no-BAQ screening engine
-    runs."""
+    device: where the sub-screen and the device-BAQ runner run; None =
+    "cuda" when a card is present, else "cpu" (the plain PyTorch
+    versions).  Only tests set it, to run the plain versions on a host
+    that has a card.  device_baq_on is the reference's own: on only with
+    an explicit use_device_baq (--device-baq) and a configuration the
+    BAQ-screening engines cover; otherwise the host no-BAQ screening
+    engine runs."""
 
     device: str | None = None
 
@@ -84,9 +87,6 @@ class VarcallConf(_ref.VarcallConf):
         if self.device is not None:
             return torch.device(self.device)
         return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-    def device_baq_on(self, pconf) -> bool:
-        return False
 
 
 def call_snvs_batch(batch: ColumnBatch, conf: VarcallConf, stats: CallStats,

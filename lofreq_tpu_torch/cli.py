@@ -2,7 +2,8 @@
 
 Counterpart of lofreq_tpu/cli.py for the subcommands the port has: `call`
 only, with the reference's own arguments.  --profile writes a
-torch.profiler trace; --device-baq is refused until device BAQ is ported.
+torch.profiler trace; --device-baq runs the device-BAQ screening engine
+(the BAQ HMM kernels K3/K4 on the card, the plain PyTorch HMM without one).
 """
 
 from __future__ import annotations
@@ -44,9 +45,6 @@ def cmd_call(args) -> int:
 
     from .pipelines.call_pipeline import call_and_filter
 
-    if args.device_baq:
-        return _err("--device-baq is not ported to lofreq_tpu_torch yet; "
-                    "drop it (the host no-BAQ screening engine runs)")
     if not args.ref:
         return _err("Need a reference for calling variants")
     if not os.path.exists(args.bam) and args.bam != "-":
@@ -120,7 +118,9 @@ _HELP = {
                      "confirmation (default: on when a card is present; "
                      "without one, --device-screen runs the plain PyTorch "
                      "screen on the CPU)",
-    "device_baq": "not ported yet: refused",
+    "device_baq": "read rescoring (BAQ) on the CUDA card with exact host "
+                  "confirmation of candidate columns (default: off; "
+                  "without a card the plain PyTorch HMM runs on the CPU)",
     "profile_dir": "write a torch.profiler trace of the call to DIR",
 }
 

@@ -2,10 +2,9 @@
 
 Counterpart of lofreq_tpu/pipelines/call_pipeline.py.  run_call and
 call_and_filter are forked so that the windows go through the port's
-caller (lofreq_tpu_torch.call.caller); the ingest, window builders,
-filters and VCF writer are the reference's own.  Of the reference's
-screening engines only the host no-BAQ engine runs: device BAQ is not
-ported yet.
+caller (lofreq_tpu_torch.call.caller) and the device-BAQ engine uses the
+port's runner (lofreq_tpu_torch.ops.device_baq); the ingest, window
+builders, filters and VCF writer are the reference's own.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from collections import deque
 from concurrent.futures import wait as _fwait
 
 from lofreq_tpu.core import stagetimer
+from lofreq_tpu.defaults import BAQ_SCREEN_DELTA
 from lofreq_tpu.filt.filter import run_filter
 from lofreq_tpu.io.bam import BamReader
 from lofreq_tpu.io.fasta import Fasta
@@ -38,6 +38,8 @@ from lofreq_tpu.pipelines.call_pipeline import (  # noqa: F401
 )
 
 from ..call.caller import VarcallConf, call_vars_batch, confirm_snv_candidates
+from ..ops.device_baq import get_runner
+from ..ops.screen import screen_ready
 
 
 def run_call(
@@ -53,10 +55,10 @@ def run_call(
 ) -> CallResult:
     """Run variant calling; returns unfiltered variants + stats.
 
-    The reference's body (lofreq_tpu/pipelines/call_pipeline.py:run_call)
-    with the engine gate reduced to the host no-BAQ screening engine.
-    vconf must be the port's VarcallConf (VarcallConf.from_reference
-    converts a reference conf)."""
+    The reference's body (lofreq_tpu/pipelines/call_pipeline.py:run_call),
+    with both screening engines: device BAQ when vconf.device_baq_on
+    (--device-baq), else host no-BAQ.  vconf must be the port's
+    VarcallConf (VarcallConf.from_reference converts a reference conf)."""
     vconf = vconf if vconf is not None else VarcallConf()
     if not isinstance(vconf, VarcallConf):
         raise TypeError("run_call needs lofreq_tpu_torch's VarcallConf; "
@@ -91,21 +93,33 @@ def run_call(
             chrom_ign = None
             if ign_pos is not None and pconf.use_sq:
                 chrom_ign = ign_pos.get(chrom)
+            device_baq = None
             screen_ctx = None
             sweep_pconf = pconf
-            # a reused conf object may carry the flag from a previous run
+            # a reused conf object may carry the flags from a previous run
             vconf.baq_screen_null = False
             vconf.baq_screen_bias = 0
             if pconf.bed is None and vconf.baq_screen_config_ok(pconf) \
                     and os.environ.get(
                         "LOFREQ_TPU_BAQ_SCREEN", "1") != "0":
-                # host no-BAQ screening: the sweep skips the C BAQ (its
-                # err probs are per-base lower bounds), the prescreen and
-                # the sub-screen discard provably insignificant columns,
-                # and candidate clusters are re-scored with the exact C BAQ
-                vconf.baq_screen_null = True
-                sweep_pconf = copy.copy(pconf)
-                sweep_pconf.use_baq = False
+                if vconf.device_baq_on(pconf):
+                    # device BAQ: eligible reads get f32 BAQ from the card
+                    # (K3/K4), deflated by BAQ_SCREEN_DELTA in the merge;
+                    # the rest keep the exact C BAQ.  The screen must be
+                    # usable (screen_ready raises otherwise)
+                    screen_ready(vconf.screen_device())
+                    device_baq = get_runner(ext_baq=pconf.ext_baq,
+                                            device=vconf.screen_device())
+                    vconf.baq_screen_bias = BAQ_SCREEN_DELTA
+                else:
+                    # host no-BAQ screening: the sweep skips the C BAQ
+                    # (its err probs are per-base lower bounds)
+                    vconf.baq_screen_null = True
+                    sweep_pconf = copy.copy(pconf)
+                    sweep_pconf.use_baq = False
+                # either way the prescreen and the sub-screen discard
+                # provably insignificant columns, and candidate clusters
+                # are re-scored with the exact C BAQ
                 screen_ctx = []
             # window confirms run concurrently with later windows' ingest
             # and screen; results drain FIFO, so res.vars stays in order
@@ -143,7 +157,7 @@ def run_call(
                 for batch in _native_window_batches(
                         rdr, tid, chrom, ref, sweep_pconf,
                         rstart, rend, window=WINDOW, vconf=vconf,
-                        ign_pos=chrom_ign, device_baq=None,
+                        ign_pos=chrom_ign, device_baq=device_baq,
                         keep_raw=screen_ctx is not None):
                     vs = call_vars_batch(batch, vconf, res.stats,
                                          screen_ctx=screen_ctx)

@@ -11,24 +11,44 @@
    CLI.  The screen is forced on through LOFREQ_TPU_DEVICE_SCREEN=1 (the
    auto gate's override), not --device-screen, because the ##source=
    header line carries the argument vector.
+3. The device-BAQ engine (--device-baq): the port's run_call with its
+   runner on the CPU (the plain PyTorch HMM) against the reference's
+   exact path and the reference's own device-BAQ path, on the cases of
+   tests/test_device_baq.py plus one without ext BAQ; and the CLI with
+   --device-baq on every golden case.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from lofreq_tpu.call.caller import VarcallConf as RefConf
+from lofreq_tpu.defaults import BAQ_SCREEN_DELTA
+from lofreq_tpu.pileup.engine import PileupConf
 from lofreq_tpu.pipelines.call_pipeline import run_call as ref_run_call
 from lofreq_tpu_torch import cli as port_cli
 from lofreq_tpu_torch.call.caller import VarcallConf
-from lofreq_tpu_torch.ops import cuda_poissbin
+from lofreq_tpu_torch.ops import cuda_poissbin, device_baq
 from lofreq_tpu_torch.ops import screen as port_screen
 from lofreq_tpu_torch.pipelines.call_pipeline import run_call
+from simulate import simulate
 from simulate_fast import simulate_fast
 from test_call_e2e_differential import _CASES, _minisam_to_bam, _norm
 
 
 def _records(res):
     return [(v.pos, v.ref, v.alt, v.qual, v.info) for v in res.vars]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small ops; with the test workers sharing
+    the host's cores, one intra-op thread per worker avoids oversubscribing
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -110,11 +130,18 @@ def _cli_case(case, tmp_path, monkeypatch, capsys, extra):
 @pytest.mark.parametrize(
     "ci", range(len(_CASES)), ids=[c["name"] for c in _CASES])
 def test_cli_call_golden(ci, tmp_path, monkeypatch, capsys):
-    case = _CASES[ci]
+    _check_golden(_CASES[ci], tmp_path, monkeypatch, capsys, [])
+
+
+def _check_golden(case, tmp_path, monkeypatch, capsys, extra):
+    """The port's CLI with `extra` arguments gives the case's golden VCF
+    (the ##source= line without the extra arguments) and test counts."""
     monkeypatch.setenv("LOFREQ_TPU_DEVICE_SCREEN", "1")
-    rc, err = _cli_case(case, tmp_path, monkeypatch, capsys, [])
+    rc, err = _cli_case(case, tmp_path, monkeypatch, capsys, extra)
     assert rc == 0, f"{case['name']}: rc={rc}\n{err}"
     got = (tmp_path / "out.vcf").read_text()
+    for arg in extra:
+        got = got.replace(f" {arg} ", " ", 1)
     assert _norm(got) == _norm(case["expected_vcf"]), case["name"]
     counts = [None, None]
     for line in err.splitlines():
@@ -128,11 +155,87 @@ def test_cli_call_golden(ci, tmp_path, monkeypatch, capsys):
         assert counts[1] == exp[1], case["name"]
 
 
-def test_cli_refuses_device_baq(tmp_path, monkeypatch, capsys):
-    rc, err = _cli_case(_CASES[0], tmp_path, monkeypatch, capsys,
-                        ["--device-baq"])
-    assert rc == 1 and "not ported" in err
-    assert not (tmp_path / "out.vcf").exists()
+@pytest.mark.parametrize(
+    "ci", range(len(_CASES)), ids=[c["name"] for c in _CASES])
+def test_cli_device_baq_golden(ci, tmp_path, monkeypatch, capsys):
+    """--device-baq gives the VCF of the call without it: the device BAQ
+    only screens, and candidates are confirmed with the exact C BAQ."""
+    _check_golden(_CASES[ci], tmp_path, monkeypatch, capsys,
+                  ["--device-baq"])
+
+
+def _indelqual_bam(art, tmp_path):
+    """BI/BD tags by the dindel model, so planted indels reach
+    significance (tests/test_device_baq.py:73-79)."""
+    from lofreq_tpu.io.bai import build_bai
+    from lofreq_tpu.pipelines.indelqual import run_indelqual
+
+    iq_bam = str(tmp_path / "iq.bam")
+    run_indelqual(art["bam"], iq_bam, dindel=True, ref_path=art["fa"])
+    build_bai(iq_bam)
+    return iq_bam
+
+
+_INDELS = ((0.5, 2, 3, "ins"), (0.4, 2, 4, "del"))
+# the cases of tests/test_device_baq.py, and one without ext BAQ
+DEVICE_BAQ_CASES = {
+    "snv_only": dict(sim=dict(genome_len=25000, depth=90, seed=23)),
+    "indel_reads": dict(sim=dict(genome_len=20000, depth=80, seed=5,
+                                 indels=_INDELS)),
+    "region": dict(sim=dict(genome_len=20000, depth=70, seed=9),
+                   region=(2001, 15000)),
+    "call_indels": dict(sim=dict(genome_len=20000, depth=80, seed=3,
+                                 indels=_INDELS),
+                        indelqual=True, vconf=dict(no_indels=False),
+                        pconf=dict(collect_indels=True, use_idaq=True)),
+    "no_ext_baq": dict(sim=dict(genome_len=20000, depth=80, seed=31),
+                       pconf=dict(ext_baq=False)),
+}
+
+
+@pytest.mark.parametrize("name", list(DEVICE_BAQ_CASES))
+def test_port_device_baq_matches_reference(name, tmp_path):
+    """The port's device-BAQ engine (runner on the CPU: the plain HMM)
+    gives the records and test counts of the reference's exact path and
+    of the reference's own device-BAQ path, and every eligible read went
+    through the runner."""
+    spec = DEVICE_BAQ_CASES[name]
+    art = simulate(str(tmp_path), **spec["sim"])
+    if spec.get("indelqual"):
+        art["bam"] = _indelqual_bam(art, tmp_path)
+    kw = {}
+    if "region" in spec:
+        kw["region"] = "%s:%d-%d" % ((art["chrom"],) + spec["region"])
+    vkw = spec.get("vconf", {})
+
+    def pconf():
+        return PileupConf(**spec.get("pconf", {}))
+
+    exact = ref_run_call(art["bam"], art["fa"], pconf=pconf(), **kw,
+                         vconf=RefConf(use_device_screen=False,
+                                       use_device_baq=False, **vkw))
+    ref_dev = ref_run_call(art["bam"], art["fa"], pconf=pconf(), **kw,
+                           vconf=RefConf(use_device_screen=True,
+                                         use_device_baq=True, **vkw))
+    conf = VarcallConf(use_device_screen=True, use_device_baq=True,
+                       device="cpu", **vkw)
+    assert conf.device_baq_on(pconf())
+    before = device_baq.RUN_STATS["reads"]
+    with device_baq.count_extracted_reads() as extracted:
+        res = run_call(art["bam"], art["fa"], vconf=conf, pconf=pconf(),
+                       **kw)
+    # every eligible read of every window went through the runner
+    assert device_baq.RUN_STATS["reads"] - before == extracted["eligible"]
+    assert extracted["eligible"] > 0
+    assert conf.baq_screen_bias == BAQ_SCREEN_DELTA
+    assert not conf.baq_screen_null
+    assert len(exact.vars) > 0
+    for other in (exact, ref_dev):
+        assert _records(res) == _records(other)
+        assert res.stats.num_snv_tests == other.stats.num_snv_tests
+        assert res.stats.num_indel_tests == other.stats.num_indel_tests
+    if vkw:
+        assert any("INDEL" in (v.info or "") for v in res.vars)
 
 
 def test_cli_profile_writes_trace(tmp_path, monkeypatch, capsys):
