@@ -33,15 +33,34 @@ Phases, one line each; any failure exits non-zero before the result:
    Then BAQ_PAIRS pairs of walls in turns against the host path, with
    median stages, and one profiled call;
 9. timings at the runner's batch shape: K3's and K4's device time per
-   launch (profiler) and the plain HMM's time per call (CUDA events).
-Then a JSON line of the kernels, the card line, and as the last line
+   launch (profiler) and the plain HMM's time per call (CUDA events);
+10. column step: the device column step of lofreq_tpu_torch.entry (the
+   quality merge, filters and counts as torch ops, the DP as K1's f32
+   entry) and the fused column step (kernel K2).  The counted run drives
+   entry(device="cuda")'s function on its example batch and both steps
+   on the deployment batch of tools/device_step_bench.py (65,536 columns
+   x 2,016 reads, seed 3); it must launch K1's f32 entry and K2.  Then, on
+   that batch, on a batch of the same shape whose tails spread over
+   [-80, -1] with candidates on both sides of the threshold (spread_batch,
+   its reach checked), and on a ragged 1,000 x 75 one: K2 against its
+   plain version, each step against its plain version (the DP's plain
+   version in place of K1), and the fused step against the unfused one;
+11. timings at the deployment shape: K2's and K1's f32 entry's device
+   time per launch (profiler), the copy of the DP input into K1's [D, B]
+   layout that the unfused step makes (CUDA events), both steps'
+   columns/s (CUDA events) and the plain versions' time per call.
+Then a JSON line of the kernels (each with its bound: the bytes it must
+move over the card's memory rate or its f32 operations over the card's
+f32 rate, whichever is longer), the card line, and as the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +86,31 @@ BAQ_ROW_TOL = 1e-5     # |K3 row - plain| abs (rows in [0, 1]), and rel scale
 BAQ_SHARE = 0.999      # identical q and st; |dq| <= 1 everywhere
 BAQ_REPS, BAQ_PLAIN_WINDOWS = 20, 3
 BAQ_KERNELS = {"baq_fwd": "baq_fwd_kernel", "baq_bwd": "baq_bwd_kernel"}
+# the device column step: tools/device_step_bench.py's deployment batch
+# (D = 2,000 padded to 2,016) and a ragged one, both drawn from seed 3,
+# and at the deployment shape a batch whose tails spread (spread_batch)
+STEP_SHAPES = ((65536, 2016), (1000, 75))
+STEP_SEED = 3
+STEP_TAIL_FLOOR = -80.0  # below it a tail is lost in f32 underflow
+STEP_FUSED_ATOL, STEP_FUSED_RTOL = 1e-2, 1e-3  # exp vs pow decode, 18 cells
+# launches per profiled K2 / K1-f32 window: the profiler dropped 2 of 20
+# K1-f32 launches on an H100, and 1% of a window may go unseen
+STEP_REPS = 300
+STEP_ITERS = 5           # whole-step calls per CUDA-event window
+STEP_PLAIN_WINDOWS = 3
+# the card's published rates (H100 SXM, NVIDIA's data sheet) for bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations, counted from the kernel bodies.  K1 per read at tail
+# cell kc: 3 kc + 1 in the DP step (csrc/poissbin_screen.cuh lfq_step)
+# plus 2, for the decode (screen_codes) or the clip (tail_probs).  K2 per
+# kept read: 52 in the 18-cell step, 2 for the clip, 11 for the merge and
+# 2 per decoded field (csrc/fused_call.cuh lfq_fc_base).  K3 and K4 per
+# band cell and row (csrc/baq_hmm.cuh lfq_baq_forward, lfq_baq_backward
+# with lfq_baq_map; chain and butterfly steps included).
+K2_OPS_PER_KEPT = 52 + 2 + 11
+BAQ_FWD_OPS_PER_CELL, BAQ_BWD_OPS_PER_CELL = 32, 48
+BAQ_BAND = 15            # non-zero cells of a band row (2 bw + 1)
 
 
 def fail(msg: str) -> None:
@@ -89,6 +133,18 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def register_use(log: str) -> dict:
+    """{kernel: its registers and spills} from nvcc's ptxas -v log."""
+    use, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"\d([a-z_]+_kernel)E", ln)
+            name = m.group(1) if m else ln.split()[-1]
+        elif name and ("registers" in ln or "spill" in ln):
+            use.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return {k: ", ".join(v) for k, v in use.items()}
 
 
 def events_ms(fn, reps: int) -> float:
@@ -125,6 +181,15 @@ def device_profile(fn):
     return out, wall, dev
 
 
+def report_profile(name: str, prof_wall: float, dev: dict) -> None:
+    total_us = sum(us for _, us in dev.values())
+    say("profile", f"{name}: wall {prof_wall:.4f} s, device "
+        f"time {total_us:.1f} us, busy share "
+        f"{total_us / 1e6 / prof_wall:.6f}; " + "; ".join(
+            f"{k[:60]} n={n} {us:.1f} us" for k, (n, us) in
+            sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]))
+
+
 def kernel_us(dev: dict, name: str = KERNEL_NAME):
     """(launches, device µs) of a kernel in a profile, or None if absent."""
     hits = [v for k, v in dev.items() if name in k]
@@ -143,6 +208,21 @@ def per_launch_ms(dev: dict, name: str, reps: int) -> float:
     check(hit is not None and reps - max(1, reps // 100) <= hit[0] <= reps,
           f"profile saw {hit} launches of {name}, want {reps}")
     return hit[1] / hit[0] / 1e3
+
+
+def bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the least time for a function
+    that moves nbytes (each input read once, each output written once) and
+    does ops f32 operations, at the card's published rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dp_ops(reads: torch.Tensor, kc: torch.Tensor) -> float:
+    """K1's f32 operations for `reads` [B] DP steps per column at tail
+    cells kc [B] (3 kc + 3 per read)."""
+    return float((reads.double() * (3 * kc.double() + 3)).sum())
 
 
 def screen_inputs(rng, B: int):
@@ -179,8 +259,14 @@ def kernel_vs_plain(cp, rng, B: int) -> float:
 
 
 def time_shape(cp, rng, B: int):
-    """(K1 ms per launch, plain ms per call) at [B, 128]."""
+    """(K1 ms per launch, plain ms per call, (bound ms, bound by)) at
+    [B, 128]."""
     codes, ks, lt = screen_inputs(rng, B)
+    # codes, ks and log_thresh in; log tail and mask out.  The DP steps
+    # are the non-pad codes (a pad is the identity)
+    nbytes = codes.numel() + B * (4 + 4 + 4 + 1)
+    lim = bound(nbytes, dp_ops((codes != cp.CODE_PAD).sum(1),
+                               ks.clamp(1, cp.KMAX)))
 
     def kernel():
         return cp.screen_codes(codes, ks, lt)
@@ -202,8 +288,9 @@ def time_shape(cp, rng, B: int):
     say("timing", f"B={B} x 128: kernel {ms:.6f} ms {how}; wrapper "
         f"throughput {wrapper_ms:.6f} ms per call (CUDA events, "
         f"{KERNEL_REPS} calls); plain torch {plain_ms:.6f} ms per call "
-        f"(CUDA events, median of {PLAIN_WINDOWS} windows of {PLAIN_REPS})")
-    return ms, plain_ms
+        f"(CUDA events, median of {PLAIN_WINDOWS} windows of {PLAIN_REPS}); "
+        f"bound {lim[0]:.9f} ms by {lim[1]}")
+    return ms, plain_ms, lim
 
 
 def baq_inputs(bt, rng, B: int, L: int, Lr: int):
@@ -258,6 +345,19 @@ def baq_vs_plain(ca, bt, rng, B: int, L: int, Lr: int):
     return row_err, float(dq)
 
 
+def baq_bounds(B: int, L: int, Lr: int) -> dict:
+    """{K3, K4: (bound ms, bound by)} at [B, L] with windows of Lr.  K3
+    reads the window codes, read codes, error probs and l_ref and writes
+    the M and I band rows and the row scales; K4 reads those and the same
+    read inputs and writes q and st."""
+    reads_in = B * (Lr + L + 4 * L + 4)
+    rows = 2 * B * L * BAQ_BAND * 4 + B * L * 4
+    cells = B * L * BAQ_BAND
+    return {"baq_fwd": bound(reads_in + rows, cells * BAQ_FWD_OPS_PER_CELL),
+            "baq_bwd": bound(reads_in + rows + 2 * B * L * 4,
+                             cells * BAQ_BWD_OPS_PER_CELL)}
+
+
 def time_baq(ca, bt, rng, B: int, L: int, Lr: int):
     """({K3, K4} device ms per launch, plain HMM ms per call) at [B, L]."""
     ins = baq_inputs(bt, rng, B, L, Lr)
@@ -281,6 +381,255 @@ def time_baq(ca, bt, rng, B: int, L: int, Lr: int):
     return ms, plain_ms
 
 
+def step_batch(B: int, Dd: int):
+    """The column batch of tools/device_step_bench.py:make_batch, the same
+    numpy draws, from STEP_SEED."""
+    rng = np.random.default_rng(STEP_SEED)
+    ref_nt4 = rng.integers(0, 4, B).astype(np.int8)
+    nt4 = np.where(rng.random((B, Dd)) < 0.997, ref_nt4[:, None],
+                   rng.integers(0, 4, (B, Dd))).astype(np.int8)
+    bq = rng.integers(20, 41, (B, Dd)).astype(np.int16)
+    baq = rng.integers(10, 60, (B, Dd)).astype(np.int16)
+    mq = np.full((B, Dd), 60, dtype=np.int16)
+    sq = np.full((B, Dd), -1, dtype=np.int16)
+    valid = np.ones((B, Dd), dtype=bool)
+    bonf = np.full(B, 30000.0, dtype=np.float32)
+    return nt4, bq, baq, mq, sq, valid, ref_nt4, bonf
+
+
+def spread_batch(B: int, Dd: int):
+    """A column batch whose log tails spread over [-80, -1], from
+    STEP_SEED + 1.  In step_batch's draws about 24 error reads are
+    expected per column against a kc of about 3, so every tail is near 1
+    and no column is a candidate.  Here each column has its own quality
+    level (phred 20..47, so 0.05 to 30 expected errors at full depth), its
+    own depth (a ragged edge of invalid rows from Dd / 4 to Dd), and 0..20
+    planted reads of one alt base plus 0..3 of another, so that kc takes
+    every value 1..16 and beyond and columns fall on both sides of the
+    threshold.  It also has N rows, reads below min_bq, MQ0 and missing-MQ
+    rows, and sq values that the step (use_sq off) must ignore."""
+    rng = np.random.default_rng(STEP_SEED + 1)
+    ref_nt4 = rng.integers(0, 4, B).astype(np.int8)
+    level = rng.integers(20, 48, B).astype(np.int16)
+    bq = level[:, None] + rng.integers(-3, 4, (B, Dd), dtype=np.int16)
+    low = rng.random((B, Dd), dtype=np.float32) < 0.01
+    bq[low] = rng.integers(0, 6, int(low.sum()), dtype=np.int16)
+    baq = bq + rng.integers(0, 20, (B, Dd), dtype=np.int16)
+    u = rng.random((B, Dd), dtype=np.float32)
+    mq = np.where(u < 1e-4, 0, np.where(u < 0.02, 255, 60)).astype(np.int16)
+    sq = rng.integers(20, 60, (B, Dd), dtype=np.int16)
+    depth = rng.integers(Dd // 4, Dd + 1, B)
+    valid = np.arange(Dd)[None, :] < depth[:, None]
+    nt4 = np.repeat(ref_nt4[:, None], Dd, axis=1)
+    nt4[rng.random((B, Dd), dtype=np.float32) < 0.002] = 4
+    for top, most in ((21, 20), (4, 3)):   # the main alt, then a second
+        alt = ((ref_nt4 + rng.integers(1, 4, B)) % 4).astype(np.int8)
+        k = rng.integers(0, top, B)
+        rows = rng.integers(0, depth[:, None], (B, most))
+        cols = np.repeat(np.arange(B)[:, None], most, axis=1)
+        plant = np.arange(most)[None, :] < k[:, None]
+        nt4[cols[plant], rows[plant]] = alt[cols[plant]]
+    bonf = np.full(B, 30000.0, dtype=np.float32)
+    return nt4, bq, baq, mq, sq, valid, ref_nt4, bonf
+
+
+def check_spread(dc, plain, bonf, what: str) -> None:
+    """The spread batch reaches what the step's checks must see: most
+    tested tails in [STEP_TAIL_FLOOR, -1], every kc 1..KMAX among them,
+    columns past KMAX, and candidates and tested non-candidates with tails
+    on both sides of the threshold."""
+    from lofreq_tpu_torch.defaults import DEFAULT_SIG
+
+    tested = plain["tested"].cpu().numpy()
+    tail = plain["screen_tail"].cpu().numpy()
+    ks = plain["alt_counts"].max(dim=1).values.cpu().numpy()
+    lt = float(dc.log_threshold(DEFAULT_SIG, bonf)[0])
+    spread = tested & (tail > STEP_TAIL_FLOOR) & (tail < -1.0)
+    cand = plain["candidate"].cpu().numpy()
+    kcs = set(np.unique(ks[spread]).tolist())
+    check(spread.sum() >= tested.sum() // 2,
+          f"{what}: {int(spread.sum())} of {int(tested.sum())} tested tails "
+          f"in [{STEP_TAIL_FLOOR}, -1]")
+    check(set(range(1, 17)) <= kcs, f"{what}: kc values {sorted(kcs)}")
+    check((ks > 16).any() and (cand & (tail < lt)).any()
+          and (tested & ~cand).any(),
+          f"{what}: no column past KMAX, or no candidate below the "
+          "threshold, or no tested non-candidate")
+    say("step", f"{what}: {int(spread.sum())} of {int(tested.sum())} tested "
+        f"tails in [{STEP_TAIL_FLOOR}, -1], kc 1..16 all present, "
+        f"{int((ks > 16).sum())} columns past KMAX, {int(cand.sum())} "
+        f"candidates, threshold {lt:.4f}")
+
+
+def step_args(fc, batch):
+    """(the unfused step's tensors, the fused step's tensors) on the card:
+    the packed stream is packed on the host, as the fused step takes it."""
+    nt4, bq, baq, mq, sq, valid, ref_nt4, bonf = batch
+    packed = fc.pack_columns_np(nt4, bq, baq, mq, sq, valid)
+    unfused = tuple(torch.from_numpy(a).cuda() for a in batch)
+    fused = tuple(torch.from_numpy(a).cuda() for a in
+                  (packed, ref_nt4.astype(np.int32), bonf))
+    return unfused, fused
+
+
+@contextlib.contextmanager
+def step_dp(dc, dp):
+    """The unfused column step with `dp` in place of K1's f32 entry: with
+    cuda_poissbin.tail_torch it is the step's plain version on the same
+    device; a wrapper of tail_probs sees the DP's inputs."""
+    kernel = dc.tail_probs
+    dc.tail_probs = dp
+    try:
+        yield
+    finally:
+        dc.tail_probs = kernel
+
+
+def check_step(dc, got, want, bonf, what: str,
+               fused_vs_unfused=False) -> float:
+    """Integer outputs identical; tails within TAIL_TOL where the plain
+    tail is above STEP_TAIL_FLOOR and masks identical except within
+    TAIL_TOL of the threshold; fused vs unfused, tails within atol 1e-2,
+    rtol 1e-3 where both are above the floor.  Returns the max |tail
+    difference| compared."""
+    for k in ("alt_counts", "alt_raw", "alt_nt", "depths", "tested",
+              "num_tested"):
+        check(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]),
+              f"{what}: {k} differs")
+    t_g = got["screen_tail"].cpu().numpy()
+    t_w = want["screen_tail"].cpu().numpy()
+    check(np.isfinite(t_g).all(), f"{what}: non-finite tails")
+    if fused_vs_unfused:
+        m = (t_g > STEP_TAIL_FLOOR) & (t_w > STEP_TAIL_FLOOR)
+        ok = np.allclose(t_g[m], t_w[m], atol=STEP_FUSED_ATOL,
+                         rtol=STEP_FUSED_RTOL)
+        err = float(np.abs(t_g - t_w)[m].max(initial=0.0))
+        check(ok, f"{what}: tails differ beyond atol {STEP_FUSED_ATOL}, "
+              f"rtol {STEP_FUSED_RTOL} (max {err})")
+        say("step", f"{what}: counts, depths, alt ids and tested identical; "
+            f"max |dtail| {err:.3g} over {int(m.sum())} columns; "
+            f"candidates {int(got['candidate'].sum())} vs "
+            f"{int(want['candidate'].sum())}")
+        return err
+    m = t_w > STEP_TAIL_FLOOR
+    err = float(np.abs(t_g - t_w)[m].max(initial=0.0))
+    check(err <= TAIL_TOL, f"{what}: |tail - plain| {err} > {TAIL_TOL}")
+    from lofreq_tpu_torch.defaults import DEFAULT_SIG
+
+    lt = dc.log_threshold(DEFAULT_SIG, bonf).cpu().numpy()
+    near = np.abs(t_w - lt) <= TAIL_TOL
+    diff = got["candidate"].cpu().numpy() != want["candidate"].cpu().numpy()
+    check(not (diff & ~near).any(),
+          f"{what}: {int((diff & ~near).sum())} masks differ off the "
+          "threshold")
+    say("step", f"{what}: integer outputs identical; max |dtail| {err:.3g} "
+        f"over {int(m.sum())} columns above the floor; {int(near.sum())} "
+        f"within {TAIL_TOL} of the threshold ({int(diff.sum())} of them "
+        f"differ); {int(got['candidate'].sum())} candidates of "
+        f"{int(got['num_tested'])} tested")
+    return err
+
+
+def fused_vs_plain(fc, packed, ref4, what: str) -> float:
+    """K2 against fused_column_torch on the card: depths and counts
+    identical, log tails within TAIL_TOL where the plain tail is above
+    STEP_TAIL_FLOOR.  Returns the max |tail difference|."""
+    c0 = fc.launch_count()
+    got = fc.fused_columns(packed, ref4)
+    torch.cuda.synchronize()
+    check(fc.launch_count() == c0 + 1,
+          f"{what}: K2 launched {fc.launch_count() - c0} times, want 1")
+    want = fc.fused_column_torch(packed, ref4)
+    for name, g, w in zip(("depths", "kept-alt counts", "raw-alt counts"),
+                          got[1:], want[1:]):
+        check(torch.equal(g, w), f"{what}: K2 {name} differ from plain")
+    t, tw = got[0].cpu().numpy(), want[0].cpu().numpy()
+    check(t.shape == tw.shape and np.isfinite(t).all(),
+          f"{what}: K2 tail shape {t.shape} or non-finite")
+    above = tw > STEP_TAIL_FLOOR
+    err = float(np.abs(t - tw)[above].max(initial=0.0))
+    check(err <= TAIL_TOL, f"{what}: K2 |tail - plain| {err} > {TAIL_TOL}")
+    say("fused", f"{what}: K2 vs plain: depths and counts identical, max "
+        f"|dtail| {err:.3g} over {int(above.sum())} columns above the floor")
+    return err
+
+
+def time_column_step(cp, dc, fc, step, fused, unf_args, fus_args) -> dict:
+    """At the deployment shape: K1's f32 entry and K2, device ms per
+    launch (profiler) and bound; both whole steps, columns/s (CUDA
+    events); the plain versions, ms per call (CUDA events, median)."""
+    B, Dd = unf_args[0].shape
+    seen = {}
+
+    def capture(p, kc):
+        seen.update(p=p, kc=kc)
+        return cp.tail_probs(p, kc)
+
+    with step_dp(dc, capture):   # the DP's inputs, as the step gives them
+        step(*unf_args)
+    probs, kc = seen["p"], seen["kc"]
+    probs_t = probs.t().contiguous()   # the [D, B] layout the kernel reads
+    packed, ref4, _ = fus_args
+    kept = int(fused(*fus_args)["depths"].sum())
+
+    def k1_loop():
+        for _ in range(STEP_REPS):
+            cp.tail_probs(probs_t.t(), kc)
+
+    def k2_loop():
+        for _ in range(STEP_REPS):
+            fc.fused_columns(packed, ref4)
+
+    ms, lim, plain, n_seen = {}, {}, {}, {}
+    for key, loop, name in (("tail_probs", k1_loop, "tail_probs_kernel"),
+                            ("fused", k2_loop, "fused_call_kernel")):
+        loop()
+        _, _, dev = device_profile(loop)
+        ms[key] = per_launch_ms(dev, name, STEP_REPS)
+        n_seen[key] = kernel_us(dev, name)[0]
+    plain["tail_probs"] = statistics.median(
+        events_ms(lambda: cp.tail_torch(probs, kc), 1)
+        for _ in range(STEP_PLAIN_WINDOWS))
+    plain["fused"] = statistics.median(
+        events_ms(lambda: fc.fused_column_torch(packed, ref4), 1)
+        for _ in range(STEP_PLAIN_WINDOWS))
+    # K1: probs and kc in, log tail out; every read is a DP step.  K2: the
+    # stream and ref ids in, tail, depth and 4 + 4 counts out; the kept
+    # reads step the DP (bq, baq and mq decoded), each column sums 18 cells
+    lim["tail_probs"] = bound(probs.numel() * 4 + B * 8,
+                              dp_ops((probs <= 1.5).sum(1), kc))
+    lim["fused"] = bound(packed.numel() * 4 + B * 4 + B * (4 + 4 + 16 + 16),
+                         kept * (K2_OPS_PER_KEPT + 2 * 3) + B * 18)
+    step_ms = {"unfused": events_ms(lambda: step(*unf_args), STEP_ITERS),
+               "fused": events_ms(lambda: fused(*fus_args), STEP_ITERS)}
+    # tail_probs copies the step's [B, D] probs into [D, B] before K1 on
+    # every call of the unfused step (K1's time above leaves it out)
+    copy_ms = events_ms(lambda: probs.t().contiguous(), STEP_ITERS)
+    # a window of calls: the profiler drops a launch now and then, and
+    # missed the fused step's one K2 launch in a one-call profile
+    for key, fn in (("unfused", lambda: step(*unf_args)),
+                    ("fused", lambda: fused(*fus_args))):
+        _, wall, dev = device_profile(
+            lambda: [fn() for _ in range(STEP_ITERS)])
+        report_profile(f"{STEP_ITERS} calls of the {key} column step "
+                       f"[{B}, {Dd}]", wall, dev)
+    for key, label in (("tail_probs", "K1 f32 entry"), ("fused", "K2")):
+        say("timing", f"column step [{B}, {Dd}]: {label} {ms[key]:.6f} ms "
+            f"device time per launch (profiler, {n_seen[key]} of {STEP_REPS} "
+            f"launches seen); bound {lim[key][0]:.6f} ms by {lim[key][1]}; "
+            f"plain torch {plain[key]:.6f} ms per call (CUDA events, "
+            f"median of {STEP_PLAIN_WINDOWS} calls)")
+    say("timing", f"column step [{B}, {Dd}]: tail_probs' [B, D] -> [D, B] "
+        f"copy of the DP input {copy_ms:.6f} ms per call (CUDA events, "
+        f"{STEP_ITERS} copies)")
+    say("timing", f"column step [{B}, {Dd}]: whole step per call (CUDA "
+        f"events, {STEP_ITERS} calls): unfused {step_ms['unfused']:.6f} ms "
+        f"= {B / step_ms['unfused'] * 1e3:.1f} columns/s, fused "
+        f"{step_ms['fused']:.6f} ms = {B / step_ms['fused'] * 1e3:.1f} "
+        f"columns/s; {kept} kept reads")
+    return {"ms": ms, "bound": lim, "plain_ms": plain}
+
+
 def records(res):
     return [(v.pos, v.ref, v.alt, v.qual, v.info) for v in res.vars]
 
@@ -300,6 +649,8 @@ def main() -> int:
     from lofreq_tpu_torch.ops import cuda_baq as ca
     from lofreq_tpu_torch.ops import cuda_poissbin as cp
     from lofreq_tpu_torch.ops import device_baq, screen
+    from lofreq_tpu_torch.ops import device_call as dc
+    from lofreq_tpu_torch.ops import fused_call as fc
 
     card = card_line()
     say("card", f"{card}; torch {torch.__version__}, CUDA "
@@ -308,11 +659,10 @@ def main() -> int:
     t0 = time.perf_counter()
     screen.screen_ready("cuda")
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _kernel_build.build_log().splitlines()
-            if "registers" in ln or "spill" in ln]
     say("build", f"{build_s:.3f} s -> "
         f"{os.path.relpath(_kernel_build.library_path(), REPO)}; "
-        + " | ".join(regs))
+        + "; ".join(f"{k}: {v}" for k, v in
+                    register_use(_kernel_build.build_log()).items()))
 
     rng = np.random.default_rng(SEED)
     max_err = max(kernel_vs_plain(cp, rng, B) for B in (4096, 292))
@@ -321,12 +671,12 @@ def main() -> int:
     from lofreq_tpu_torch.call.caller import VarcallConf
     from lofreq_tpu_torch.pipelines.call_pipeline import run_call, stagetimer
 
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from simulate_fast import simulate_fast
+    from lofreq_tpu_torch.testing.simulate_fast import simulate_fast
 
     def reset_counts():
         cp.reset_launch_count()
         ca.reset_launch_count()
+        fc.reset_launch_count()
         screen.DISPATCH_STATS.update(dispatched=0, columns=0)
         device_baq.RUN_STATS.update(reads=0, batches=0)
 
@@ -370,14 +720,6 @@ def main() -> int:
             stages[side] = median_stages([st for _, _, st in rs])
             say("stages", f"{side} median s {json.dumps(stages[side])}")
         return stages
-
-    def report_profile(name, prof_wall, dev):
-        total_us = sum(us for _, us in dev.values())
-        say("profile", f"one {name} call: wall {prof_wall:.4f} s, device "
-            f"time {total_us:.1f} us, busy share "
-            f"{total_us / 1e6 / prof_wall:.6f}; " + "; ".join(
-                f"{k[:60]} n={n} {us:.1f} us" for k, (n, us) in
-                sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]))
 
     with tempfile.TemporaryDirectory() as td:
         t0 = time.perf_counter()
@@ -426,7 +768,7 @@ def main() -> int:
         report_walls("device", runs, WALL_PAIRS)
         prof_res, prof_wall, dev = device_profile(device_path)
         check(records(prof_res) == records(want), "profiled run differs")
-        report_profile("device-path", prof_wall, dev)
+        report_profile("one device-path call", prof_wall, dev)
 
         # the counted device-BAQ run: K3/K4 in the runner, K1 in the
         # sub-screen, and every eligible read of every window on the card
@@ -463,43 +805,112 @@ def main() -> int:
         prof_res, prof_wall, dev = device_profile(baq_path)
         check(records(prof_res) == records(want),
               "profiled device-BAQ run differs")
-        report_profile("device-BAQ", prof_wall, dev)
+        report_profile("one device-BAQ call", prof_wall, dev)
 
     mean_b = max(1, round(stats["columns"] / stats["dispatched"]))
-    ms, plain_ms = time_shape(cp, rng, mean_b)
+    ms, plain_ms, k1_bound = time_shape(cp, rng, mean_b)
     time_shape(cp, rng, 4096)
     baq_ms, baq_plain_ms = time_baq(ca, bt, rng, *BAQ_SHAPES[0])
-    check("jax" not in sys.modules, "jax was imported")
+    baq_bound = baq_bounds(*BAQ_SHAPES[0])
 
+    # the column step: entry()'s unfused step (K1's f32 entry) and the
+    # fused step (K2), on tools/device_step_bench.py's batches
+    from lofreq_tpu_torch.entry import entry
+
+    deploy, ragged = STEP_SHAPES
+    step_batches = (("deployment", step_batch, deploy),
+                    ("spread", spread_batch, deploy),
+                    ("ragged", step_batch, ragged))
+    t0 = time.perf_counter()
+    batches = {name: step_args(fc, make(*shape))
+               for name, make, shape in step_batches}
+    say("data", f"column batches {[(n, s) for n, _, s in step_batches]} "
+        f"drawn, packed and copied to the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    step, ex_args = entry(device="cuda")
+    fused = fc.build_fused_column_call(use_baq=True)
+    unf_args, fus_args = batches["deployment"]
+    # the counted run: entry()'s function on its example batch, and both
+    # steps at the deployment shape
+    reset_counts()
+    t0 = time.perf_counter()
+    ex_out = step(*ex_args)
+    unf_out = step(*unf_args)
+    fus_out = fused(*fus_args)
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    step_launches = {"tail_probs": cp.launch_count("tail_probs"),
+                     "fused": fc.launch_count(),
+                     "screen_codes": cp.launch_count("screen_codes"),
+                     **ca.launch_count()}
+    check(step_launches == {"tail_probs": 2, "fused": 1, "screen_codes": 0,
+                            "baq_fwd": 0, "baq_bwd": 0},
+          f"the column step's launches {step_launches}, want 2 of K1's f32 "
+          "entry and 1 of K2")
+    check(int(ex_out["num_tested"]) > 0 and int(unf_out["num_tested"]) > 0,
+          "the column step tested no column")
+    say("step", f"counted run: {step_wall:.4f} s for entry()'s batch "
+        f"{list(ex_args[0].shape)} and both steps at {list(deploy)}; "
+        f"launches {step_launches}; tested {int(ex_out['num_tested'])} and "
+        f"{int(unf_out['num_tested'])} columns")
+    with step_dp(dc, cp.tail_torch):
+        ex_plain = step(*ex_args)
+    step_errs = [check_step(dc, ex_out, ex_plain, ex_args[-1],
+                            "entry() batch vs plain")]
+    fused_errs = []
+    for name, _, shape in step_batches:
+        unf_args, fus_args = batches[name]
+        what = f"{name} [{shape[0]}, {shape[1]}]"
+        unf = unf_out if name == "deployment" else step(*unf_args)
+        fus = fus_out if name == "deployment" else fused(*fus_args)
+        with step_dp(dc, cp.tail_torch):
+            plain = step(*unf_args)
+        if name == "spread":
+            check_spread(dc, plain, unf_args[-1], what)
+        step_errs.append(check_step(dc, unf, plain, unf_args[-1],
+                                    f"unfused step {what} vs plain"))
+        fused_errs.append(fused_vs_plain(fc, *fus_args[:2], what))
+        check_step(dc, fus, unf, unf_args[-1], f"fused vs unfused {what}",
+                   fused_vs_unfused=True)
+        del unf, fus, plain
+    col = time_column_step(cp, dc, fc, step, fused, *batches["deployment"])
+
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "lofreq_tpu"))
+    check(not foreign, f"modules of jax or lofreq_tpu were imported: "
+          f"{foreign[:8]}")
+
+    def entry_line(name, source, replaces, launches, err, ms, plain, lim):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": lim[0], "bound_by": lim[1],
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
+
+    k1_src = "lofreq_tpu_torch/csrc/poissbin_screen.cu"
     baq_src = "lofreq_tpu_torch/csrc/baq_hmm.cu"
-    print(json.dumps({"kernels": [{
-        "name": "screen_codes",
-        "route": "cuda",
-        "source": "lofreq_tpu_torch/csrc/poissbin_screen.cu",
-        "replaces": "lofreq_tpu/ops/pallas_poissbin.py:43",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "baq_fwd",
-        "route": "cuda",
-        "source": baq_src,
-        "replaces": "lofreq_tpu/ops/pallas_baq.py:104",
-        "launches": baq_launches["baq_fwd"],
-        "max_abs_err": max(e for e, _ in baq_errs),
-        "ms": baq_ms["baq_fwd"],
-        "plain_ms": baq_plain_ms,
-    }, {
-        "name": "baq_bwd",
-        "route": "cuda",
-        "source": baq_src,
-        "replaces": "lofreq_tpu/ops/pallas_baq.py:165",
-        "launches": baq_launches["baq_bwd"],
-        "max_abs_err": max(e for _, e in baq_errs),
-        "ms": baq_ms["baq_bwd"],
-        "plain_ms": baq_plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        entry_line("screen_codes", k1_src,
+                   "lofreq_tpu/ops/pallas_poissbin.py:43", launches,
+                   max_err, ms, plain_ms, k1_bound),
+        entry_line("baq_fwd", baq_src, "lofreq_tpu/ops/pallas_baq.py:104",
+                   baq_launches["baq_fwd"], max(e for e, _ in baq_errs),
+                   baq_ms["baq_fwd"], baq_plain_ms, baq_bound["baq_fwd"]),
+        entry_line("baq_bwd", baq_src, "lofreq_tpu/ops/pallas_baq.py:165",
+                   baq_launches["baq_bwd"], max(e for _, e in baq_errs),
+                   baq_ms["baq_bwd"], baq_plain_ms, baq_bound["baq_bwd"]),
+        entry_line("poissbin_tail", k1_src,
+                   "lofreq_tpu/ops/pallas_poissbin.py:43",
+                   step_launches["tail_probs"], max(step_errs),
+                   col["ms"]["tail_probs"], col["plain_ms"]["tail_probs"],
+                   col["bound"]["tail_probs"]),
+        entry_line("fused_column_call", "lofreq_tpu_torch/csrc/fused_call.cu",
+                   "lofreq_tpu/ops/pallas_fused_call.py:66",
+                   step_launches["fused"], max(fused_errs),
+                   col["ms"]["fused"], col["plain_ms"]["fused"],
+                   col["bound"]["fused"]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Command-line interface: `python -m lofreq_tpu_torch.cli call ...`
 
 Counterpart of lofreq_tpu/cli.py for the subcommands the port has: `call`
-only, with the reference's own arguments.  --profile writes a
-torch.profiler trace; --device-baq runs the device-BAQ screening engine
-(the BAQ HMM kernels K3/K4 on the card, the plain PyTorch HMM without one).
+only, with the reference's arguments.  --profile writes a torch.profiler
+trace; --device-baq runs the device-BAQ screening engine (the BAQ HMM
+kernels K3/K4).  --device names where the device engines run: the CUDA
+card (default), or the CPU with the kernels' plain PyTorch versions, for
+tests.
 """
 
 from __future__ import annotations
@@ -13,16 +15,115 @@ import contextlib
 import os
 import sys
 
-from lofreq_tpu.cli import _err, add_call_args
-from lofreq_tpu.cli import confs_from_args as _ref_confs_from_args
+from . import defaults as D
+
+
+def _err(msg):
+    print(f"FATAL: {msg}", file=sys.stderr)
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# call
+# ---------------------------------------------------------------------------
+
+def add_call_args(p: argparse.ArgumentParser):
+    p.add_argument("-f", "--ref", required=False, help="reference fasta")
+    p.add_argument("-o", "--out", default="-", help="vcf output")
+    p.add_argument("-r", "--region")
+    p.add_argument("-l", "--bed")
+    p.add_argument("-q", "--min-bq", type=int, default=D.DEFAULT_MIN_BQ)
+    p.add_argument("-Q", "--min-alt-bq", type=int, default=D.DEFAULT_MIN_ALT_BQ)
+    p.add_argument("-R", "--def-alt-bq", type=int, default=D.DEFAULT_DEF_ALT_BQ)
+    p.add_argument("-j", "--min-jq", type=int, default=D.DEFAULT_MIN_JQ)
+    p.add_argument("-J", "--min-alt-jq", type=int, default=D.DEFAULT_MIN_ALT_JQ)
+    p.add_argument("-K", "--def-alt-jq", type=int, default=D.DEFAULT_DEF_ALT_JQ)
+    p.add_argument("-B", "--no-baq", action="store_true")
+    p.add_argument("-A", "--no-idaq", action="store_true")
+    p.add_argument("-D", "--del-baq", action="store_true")
+    p.add_argument("-e", "--no-ext-baq", action="store_true")
+    p.add_argument("-m", "--min-mq", type=int, default=D.DEFAULT_MIN_MQ)
+    p.add_argument("-M", "--max-mq", type=int, default=D.DEFAULT_MAX_MQ)
+    p.add_argument("-N", "--no-mq", action="store_true")
+    p.add_argument("-s", "--src-qual", action="store_true")
+    p.add_argument("-S", "--ign-vcf")
+    p.add_argument("-T", "--def-nm-q", type=int, default=D.DEFAULT_DEF_NM_QUAL)
+    p.add_argument("-a", "--sig", type=float, default=D.DEFAULT_SIG)
+    p.add_argument("-b", "--bonf", default="dynamic")
+    p.add_argument("-C", "--min-cov", type=int, default=D.DEFAULT_MIN_COV)
+    p.add_argument("-d", "--max-depth", type=int,
+                   default=D.DEFAULT_MAX_PLP_DEPTH)
+    p.add_argument("-t", "--approx-threshold", type=int, default=-1)
+    p.add_argument("--call-indels", action="store_true")
+    p.add_argument("--only-indels", action="store_true")
+    p.add_argument("--illumina-1.3", dest="illumina13", action="store_true")
+    p.add_argument("--use-orphan", action="store_true")
+    p.add_argument("--plp-summary-only", action="store_true")
+    p.add_argument("--no-default-filter", action="store_true")
+    p.add_argument("--force-overwrite", action="store_true")
+    p.add_argument("--device-screen", dest="device_screen",
+                   action="store_true", default=None,
+                   help="screen columns on the device before exact "
+                        "confirmation (default: on when a CUDA card is "
+                        "present, else the host engine, whose output is "
+                        "identical)")
+    p.add_argument("--no-device-screen", dest="device_screen",
+                   action="store_false",
+                   help="force the all-exact host path")
+    p.add_argument("--device-baq", dest="device_baq", action="store_true",
+                   default=None,
+                   help="read rescoring (BAQ) on the device with exact "
+                        "host confirmation of candidate columns (default: "
+                        "off)")
+    p.add_argument("--no-device-baq", dest="device_baq",
+                   action="store_false",
+                   help="force the exact host BAQ kernel everywhere")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where --device-screen and --device-baq run: cuda "
+                        "(default) launches the CUDA kernels and fails "
+                        "without a card; cpu runs their plain PyTorch "
+                        "versions and is meant for tests")
+    p.add_argument("--profile", dest="profile_dir", metavar="DIR",
+                   help="write a torch.profiler trace of the call to DIR")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("bam")
 
 
 def confs_from_args(args):
-    """(VarcallConf, PileupConf) from parsed `call` arguments."""
     from .call.caller import VarcallConf
+    from .pileup.engine import PileupConf
 
-    vconf, pconf = _ref_confs_from_args(args)
-    return VarcallConf.from_reference(vconf), pconf
+    vconf = VarcallConf(
+        min_bq=args.min_bq, min_alt_bq=args.min_alt_bq,
+        def_alt_bq=args.def_alt_bq, min_jq=args.min_jq,
+        min_alt_jq=args.min_alt_jq, def_alt_jq=args.def_alt_jq,
+        min_cov=args.min_cov, sig=args.sig,
+        use_baq=not args.no_baq, use_mq=not args.no_mq,
+        use_sq=args.src_qual, use_idaq=not args.no_idaq,
+        no_indels=not args.call_indels and not args.only_indels,
+        only_indels=args.only_indels,
+        approx_threshold_n=args.approx_threshold,
+        use_device_screen=getattr(args, "device_screen", None),
+        use_device_baq=getattr(args, "device_baq", None),
+        device=args.device,
+    )
+    if args.bonf != "dynamic":
+        vconf.bonf_dynamic = False
+        vconf.bonf_subst = int(args.bonf)
+        vconf.bonf_indel = int(args.bonf)
+    if vconf.no_indels:
+        vconf.use_idaq = False
+    pconf = PileupConf(
+        min_mq=args.min_mq, max_mq=args.max_mq, max_depth=args.max_depth,
+        def_nm_q=args.def_nm_q, no_orphan=not args.use_orphan,
+        use_baq=not args.no_baq, redo_baq=args.del_baq,
+        ext_baq=not args.no_ext_baq,
+        use_idaq=(not args.no_idaq) and not vconf.no_indels,
+        use_sq=args.src_qual, illumina13=args.illumina13,
+        collect_indels=not vconf.no_indels,
+    )
+    return vconf, pconf
 
 
 def _profiler(trace_dir):
@@ -40,8 +141,8 @@ def _profiler(trace_dir):
 
 
 def cmd_call(args) -> int:
-    from lofreq_tpu.io.bed import BedIndex
-    from lofreq_tpu.io.vcf import VcfReader
+    from .io.bed import BedIndex
+    from .io.vcf import VcfReader
 
     from .pipelines.call_pipeline import call_and_filter
 
@@ -69,7 +170,7 @@ def cmd_call(args) -> int:
 
     vconf, pconf = confs_from_args(args)
     if args.plp_summary_only:
-        from lofreq_tpu.pipelines.plp_summary import run_plp_summary
+        from .pipelines.plp_summary import run_plp_summary
 
         run_plp_summary(args.bam, args.ref, vconf, pconf,
                         region=args.region, bed=bed)
@@ -93,7 +194,7 @@ def cmd_call(args) -> int:
     print(f"Number of indel tests performed: {res.stats.num_indel_tests}",
           file=sys.stderr)
     if args.verbose or args.debug:
-        from lofreq_tpu.core import stagetimer
+        from .core import stagetimer
 
         print(f"Stage times (s): {stagetimer.report()}", file=sys.stderr)
     return 0
@@ -105,24 +206,8 @@ def build_parser():
         description="LoFreq-class variant caller, PyTorch/CUDA port",
     )
     sub = ap.add_subparsers(dest="cmd")
-    p = sub.add_parser("call", help="call variants from BAM")
-    add_call_args(p)
-    for action in p._actions:  # the reference's help names the TPU
-        if action.dest in _HELP:
-            action.help = _HELP[action.dest]
+    add_call_args(sub.add_parser("call", help="call variants from BAM"))
     return ap
-
-
-_HELP = {
-    "device_screen": "screen columns on the CUDA card before exact "
-                     "confirmation (default: on when a card is present; "
-                     "without one, --device-screen runs the plain PyTorch "
-                     "screen on the CPU)",
-    "device_baq": "read rescoring (BAQ) on the CUDA card with exact host "
-                  "confirmation of candidate columns (default: off; "
-                  "without a card the plain PyTorch HMM runs on the CPU)",
-    "profile_dir": "write a torch.profiler trace of the call to DIR",
-}
 
 
 def main(argv=None) -> int:

@@ -41,6 +41,12 @@ LFQ_HD float lfq_decode(unsigned code) {
     return code == LFQ_CODE_PAD ? 0.0f : exp2f(-(float)code * 0.125f);
 }
 
+// An f32 probability of the column step: p > 1.5 is pad (the identity,
+// p = 0), other values are clipped to [0, 1] (pallas_poissbin.py:58-59).
+LFQ_HD float lfq_pad_clip(float p) {
+    return p > 1.5f ? 0.0f : fminf(fmaxf(p, 0.0f), 1.0f);
+}
+
 LFQ_HD int lfq_clip_k(int k) {
     return k < 1 ? 1 : (k > LFQ_KMAX ? LFQ_KMAX : k);
 }
@@ -73,6 +79,17 @@ LFQ_HD float lfq_log_tail(const float (&s)[LFQ_NCELL], int kc) {
 
 LFQ_HD uint8_t lfq_is_candidate(float log_tail, float log_thresh, int k) {
     return (log_tail < log_thresh) || (k > LFQ_KMAX);
+}
+
+// Whole column of f32 probabilities, `stride` floats apart (the
+// host-compiled form of tail_probs_kernel that the tests use).
+LFQ_HD float lfq_tail_column(const float *p, long long stride, long long d,
+                             int kc_in) {
+    float st[LFQ_NCELL];
+    lfq_init(st);
+    const int kc = lfq_clip_k(kc_in);
+    for (long long j = 0; j < d; ++j) lfq_step(st, lfq_pad_clip(p[j * stride]), kc);
+    return lfq_log_tail(st, kc);
 }
 
 // Whole column from a byte row (the host-compiled form the tests use; the

@@ -20,15 +20,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lofreq_tpu.ops.baq_jax import (  # noqa: F401  (re-exported)
-    _BASECODE,
-    _Q2P,
-    EI,
-    EM,
-    PAR_D,
-    PAR_E,
-    extract_baq,
-)
+# the HMM's parameters and tables, as in lofreq_tpu/ops/baq_jax.py
+PAR_D = 0.00001
+PAR_E = 0.4
+EI = 0.25
+EM = 0.33333333333
+
+_BASECODE = np.full(256, 4, dtype=np.uint8)
+for _i, _c in enumerate("ACGT"):
+    _BASECODE[ord(_c)] = _i
+    _BASECODE[ord(_c.lower())] = _i
+
+_Q2P = np.array([np.float32(10.0 ** (-q / 10.0)) for q in range(256)],
+                dtype=np.float32)
 
 BW = 7  # band width of the M-only reads the device path takes (baq.c:422)
 LANES = 16  # band lanes per row in the kernels: 2 * BW + 1 cells, one idle
@@ -237,13 +241,15 @@ def forward_band_torch(refw, query, qualp, l_ref):
     return band(Ms), band(Is), torch.stack(ss, dim=1)
 
 
-def baq_batch(reads_info, ref: bytes, device="cpu"):
+def baq_batch(reads_info, ref: bytes, device="cuda"):
     """Device BAQ for a batch of same-length reads (baq_batch_jax).
 
     reads_info: list of (pos, seq bytes, qual np.uint8, xb, xe), [xb, xe)
     the read's reference window.  Runs ops/cuda_baq.py:baq_hmm on
-    `device`: K3/K4 on a CUDA device, the plain version on the CPU.
+    `device`: K3/K4 on "cuda" (which raises without a card), the plain
+    version on "cpu".
     Returns (q [B, L], state [B, L]) int32 numpy arrays."""
+    from . import engine_device
     from .cuda_baq import baq_hmm
 
     B = len(reads_info)
@@ -260,6 +266,7 @@ def baq_batch(reads_info, ref: bytes, device="cpu"):
         l_ref[i] = len(w)
         query[i] = _BASECODE[np.frombuffer(seq, dtype=np.uint8)]
         qualp[i] = _Q2P[qual]
-    q, st = baq_hmm(*(torch.from_numpy(a).to(device)
+    dev = engine_device(device)
+    q, st = baq_hmm(*(torch.from_numpy(a).to(dev)
                       for a in (refw, query, qualp, l_ref)))
     return q.cpu().numpy(), st.cpu().numpy()

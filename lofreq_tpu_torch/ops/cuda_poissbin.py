@@ -1,16 +1,23 @@
-"""The Poisson-binomial screen kernel (K1) and its plain PyTorch version.
+"""The Poisson-binomial tail kernel (K1) and its plain PyTorch version.
 
-Counterpart of lofreq_tpu/ops/pallas_poissbin.py, with the u8 decode and
-the threshold compare of lofreq_tpu/ops/screen.py:screen_body fused in.
-Per pileup column it computes log P(X >= kc), X = sum of Bernoulli(p_i)
-over the column's error probs and kc = min(k, KMAX), as a clipped-K DP in
-linear f32 space (17 cells), and the candidate mask
-(log tail < log_thresh) | (k > KMAX).
+Counterpart of lofreq_tpu/ops/pallas_poissbin.py.  Per pileup column K1
+computes log P(X >= kc), X = sum of Bernoulli(p_i) over the column's error
+probs and kc = min(k, KMAX), as a clipped-K DP in linear f32 space (17
+cells).  It has two entries, each a wrapper that launches the hand-written
+kernel (csrc/poissbin_screen.cu, built at first use) for CUDA tensors or
+raises, and runs the plain version for CPU tensors; there is no fallback
+from one to the other.
 
-`screen_codes` is the wrapper: for CUDA tensors it launches the
-hand-written kernel (csrc/poissbin_screen.cu, built at first use) or
-raises; for CPU tensors it runs `screen_codes_torch`.  There is no
-fallback from one to the other.
+- `screen_codes`: over u8 error-prob codes, with the decode and the
+  threshold compare of lofreq_tpu/ops/screen.py:screen_body fused in
+  (the candidate mask (log tail < log_thresh) | (k > KMAX)); plain
+  version `screen_codes_torch`.  The `call` path's sub-screen.
+- `tail_probs`: over f32 probs, the counterpart of
+  pallas_poissbin.tail_device; plain version `tail_torch`.  The device
+  column step's DP (ops/device_call.py).  `poissbin_tail` is the
+  counterpart of pallas_poissbin.poissbin_tail_pallas on top of it.
+
+Each entry counts its own launches (launch_count).
 """
 
 from __future__ import annotations
@@ -26,18 +33,25 @@ TAIL_FLOOR = 1e-37
 S_ALIGN = 16     # the kernel reads each row as 16-byte vectors
 
 _count_lock = threading.Lock()
-_launches = 0
+_launches = {"screen_codes": 0, "tail_probs": 0}
 
 
-def launch_count() -> int:
-    """Kernel launches by `screen_codes` since the last reset."""
-    return _launches
+def launch_count(entry: str = "screen_codes") -> int:
+    """Kernel launches by the entry `entry` ("screen_codes" or
+    "tail_probs") since the last reset."""
+    with _count_lock:
+        return _launches[entry]
 
 
 def reset_launch_count() -> None:
-    global _launches
     with _count_lock:
-        _launches = 0
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _count(entry: str) -> None:
+    with _count_lock:
+        _launches[entry] += 1
 
 
 def decode_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -107,7 +121,6 @@ def screen_codes(codes: torch.Tensor, ks: torch.Tensor,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream (asynchronously) or raise."""
-    global _launches
     if codes.device.type == "cpu":
         return screen_codes_torch(codes, ks, log_thresh)
     if codes.device.type != "cuda":
@@ -129,6 +142,62 @@ def screen_codes(codes: torch.Tensor, ks: torch.Tensor,
     if err:
         raise RuntimeError("screen_codes kernel launch failed: "
                            + lib.lfq_cuda_error_string(err).decode())
-    with _count_lock:
-        _launches += 1
+    _count("screen_codes")
     return tail, mask
+
+
+def _check_tail_args(probs, kc) -> None:
+    if kc.device != probs.device:
+        raise ValueError("probs and kc must be on one device")
+    if probs.dtype != torch.float32 or probs.dim() != 2 \
+            or probs.shape[1] < 1:
+        raise ValueError(f"probs must be [B, D >= 1] float32, got "
+                         f"{tuple(probs.shape)} {probs.dtype}")
+    if kc.dtype != torch.int32 or tuple(kc.shape) != (probs.shape[0],):
+        raise ValueError(f"kc must be [{probs.shape[0]}] int32, got "
+                         f"{tuple(kc.shape)} {kc.dtype}")
+    if not kc.is_contiguous():
+        raise ValueError("kc must be contiguous")
+
+
+def tail_probs(probs: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
+    """log(max(P(X >= kc), 1e-37)) [B] f32 of probs [B, D] f32 in any
+    order, any D >= 1 (p > 1.5 is pad and acts as the identity; other
+    values are clipped to [0, 1]), kc [B] int32 in [1, KMAX].
+
+    CPU tensors run the plain version (tail_torch).  CUDA tensors launch
+    the kernel on the current stream (asynchronously) or raise.  The
+    kernel reads the probs as [D, B], so that neighbouring threads
+    (columns) read neighbouring words: a transposed view of a contiguous
+    [D, B] tensor goes in as it is, any other layout is copied into one."""
+    if probs.device.type == "cpu":
+        return tail_torch(probs, kc)
+    if probs.device.type != "cuda":
+        raise ValueError(f"no tail kernel for device {probs.device}")
+    _check_tail_args(probs, kc)
+    from .._kernel_build import get_kernel_lib
+
+    lib = get_kernel_lib()
+    B, D = probs.shape
+    probs_t = probs.t().contiguous()
+    out = torch.empty(B, dtype=torch.float32, device=probs.device)
+    if B == 0:
+        return out
+    err = lib.lfq_tail_probs_launch(
+        probs_t.data_ptr(), kc.data_ptr(), out.data_ptr(), B, D,
+        probs.device.index,
+        torch.cuda.current_stream(probs.device).cuda_stream)
+    if err:
+        raise RuntimeError("tail_probs kernel launch failed: "
+                           + lib.lfq_cuda_error_string(err).decode())
+    _count("tail_probs")
+    return out
+
+
+def poissbin_tail(probs: torch.Tensor, valid: torch.Tensor,
+                  ks: torch.Tensor) -> torch.Tensor:
+    """probs [B, D] f32 (any order), valid [B, D] bool, ks [B] int.
+    Returns the log tail [B] f32 at cell min(max(ks, 1), KMAX), the value
+    of pallas_poissbin.poissbin_tail_pallas, through tail_probs."""
+    return tail_probs(torch.where(valid, probs, 2.0).to(torch.float32),
+                      ks.clamp(1, KMAX).to(torch.int32).contiguous())

@@ -1,8 +1,8 @@
 """The device-BAQ runner: eligible reads of an ingest window through the
 BAQ HMM on the card, final BAQ values extracted there.
 
-Counterpart of lofreq_tpu/ops/device_baq.py.  The shared native ingest
-(lofreq_tpu/pileup/native_ingest.py:_splice_device_baq) calls
+Counterpart of lofreq_tpu/ops/device_baq.py.  The native ingest
+(pileup/native_ingest.py:_splice_device_baq) calls
 `run(ref, codes, quals, pos, xb, xe)` with the M-only reads at the
 window's mode read length that lfq_extract_reads found, and splices the
 [N, L] u8 BAQ it returns into the column sweep.  The f32 BAQ is a
@@ -41,6 +41,7 @@ import threading
 import numpy as np
 import torch
 
+from . import engine_device
 from .baq_torch import _BASECODE, _Q2P
 from .cuda_baq import baq_hmm
 
@@ -56,12 +57,10 @@ _RUNNERS: dict = {}
 _runners_lock = threading.Lock()
 
 
-def get_runner(ext_baq: bool = True, device=None) -> "DeviceBaqRunner":
-    """The process's runner for (ext_baq, device); device None means
-    "cuda" when a card is present, else "cpu"."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+def get_runner(ext_baq: bool = True, device="cuda") -> "DeviceBaqRunner":
+    """The process's runner for (ext_baq, device).  "cuda" runs K3/K4
+    and raises without a card; "cpu" runs the plain HMM, for tests."""
+    dev = engine_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (bool(ext_baq), str(dev))
@@ -79,7 +78,7 @@ def count_extracted_reads():
     reads the ingest hands to the runner.  Yields a dict
     {"eligible": reads, "windows": extract calls}; a run shows with it
     that RUN_STATS["reads"] covers every eligible read."""
-    from lofreq_tpu._native_build import get_native_lib
+    from .._native_build import get_native_lib
 
     lib = get_native_lib()
     counted = {"eligible": 0, "windows": 0}

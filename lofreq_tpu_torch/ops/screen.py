@@ -8,8 +8,8 @@ screened out; everything else is confirmed by the exact native DP, so the
 output is identical to running the exact DP everywhere.
 
 The numpy and C helpers of the host side (prescreen_codes,
-screen_codes_for, host_screen_tail, host_screen_tail_codes) are the
-reference's own and are re-exported here.  The reference's compile ladder,
+screen_codes_for, host_screen_tail, host_screen_tail_codes) keep the
+reference's bodies.  The reference's compile ladder,
 deadlines, mode memo files, link probe and device mesh existed only for a
 remotely compiled TPU and have no counterpart: on CUDA tensors a dispatch
 always launches the kernel.
@@ -23,17 +23,13 @@ import threading
 import numpy as np
 import torch
 
-from lofreq_tpu.ops.screen import (  # noqa: F401  (re-exported)
-    KMAX,
-    MARGIN,
-    TOP_S,
-    host_screen_tail,
-    host_screen_tail_codes,
-    prescreen_codes,
-    screen_codes_for,
-)
-
 from .cuda_poissbin import CODE_PAD, S_ALIGN, screen_codes
+
+# max probs shipped/scanned per column: deep columns are screened from
+# their top-S largest err probs (subset tail = lower bound of full tail)
+TOP_S = 128
+KMAX = 16  # clipped tail cell (tail at smaller k bounds tail at k)
+MARGIN = 1e3  # screening slack for f32 drift + running-bonf growth
 
 # "did the device screen run in this process": dispatches and the columns
 # they carried (bench and chip_smoke report these)
@@ -122,3 +118,139 @@ def screen_dispatch_codes(codes, ks, bonf, sig, device) -> torch.Tensor:
 def screen_fetch(handle: torch.Tensor) -> np.ndarray:
     """Blocking fetch of a dispatch handle's candidate mask [B] bool."""
     return handle.cpu().numpy()
+
+
+def host_screen_tail(probs, depths, ks, bonf, sig) -> np.ndarray:
+    """Host (numpy f64) mirror of the device screen's clipped-K partial
+    tail DP: True = candidate (needs the exact DP).  Same semantics as
+    screen_body — top-S largest err probs per row (subset tail = lower
+    bound of the full tail), K clipped to KMAX (a clipped tail can rule
+    nothing out beyond it), same MARGIN slack — minus the u8
+    quantization (f64 here, and no link to cross).
+
+    This is the fallback engine when the device screen is unavailable
+    (compile still in flight, thin link, no accelerator): without it,
+    every top-k-prescreen survivor lands on the exact confirm pass
+    (measured 10x confirm blow-up on a dark-screen bench run).  It only
+    ever sees prescreen survivors, so B is small."""
+    probs = np.asarray(probs, dtype=np.float64)
+    B, D = probs.shape
+    if B == 0:
+        return np.ones(0, dtype=bool)
+    ks = np.asarray(ks, dtype=np.int64)
+    kc = np.minimum(np.maximum(ks, 1), KMAX)
+    in_depth = np.arange(D)[None, :] < np.asarray(depths)[:, None]
+    arr = np.where((probs <= 1.0) & in_depth, probs, 0.0)
+    s = min(D, TOP_S)
+    if D > s:
+        arr = np.partition(arr, D - s, axis=1)[:, D - s:]
+    cell = np.arange(KMAX + 1)[None, :]
+    is_tail = cell == kc[:, None]
+    not_beyond = cell <= kc[:, None]
+    state = np.zeros((B, KMAX + 1))
+    state[:, 0] = 1.0
+    for j in range(arr.shape[1]):
+        p = arr[:, j][:, None]
+        shifted = np.concatenate([np.zeros((B, 1)), state[:, :-1]], axis=1)
+        adv = shifted * p
+        tail = state + adv
+        state = np.where(is_tail, tail, state * (1.0 - p) + adv)
+        state *= not_beyond
+    lin_tail = state[np.arange(B), kc]
+    thresh = np.float64(sig) * MARGIN / np.asarray(bonf, dtype=np.float64)
+    return (lin_tail < thresh) | (ks > KMAX)
+
+
+# -- code-native screening (csrc/screen_pack.c) -------------------------
+#
+# The fused sweep's CSR f32 probs are quantized/top-S-selected in C —
+# per column, sorted ascending, 255-padded — so the whole screening
+# front-end (prescreen bound + device/host sub-screen) runs on u8 codes
+# with no per-chunk numpy partition/quantize pass at all.
+
+LN2_8 = float(np.log(2.0)) / 8.0
+
+
+def screen_codes_for(flat_probs, starts, cols) -> np.ndarray | None:
+    """[len(cols), TOP_S] u8 top-S codes via the native kernel, or None
+    when the native lib is unavailable (callers use the prob path).
+
+    flat_probs may be f32 probs (quantize + counting select) or a
+    pre-quantized u8 code CSR straight from the fused sweep
+    (screen_flat==2 — pure counting select, the cheapest path)."""
+    import ctypes
+
+    if flat_probs.dtype not in (np.float32, np.uint8):
+        return None
+    try:
+        from .._native_build import get_native_lib
+
+        lib = get_native_lib()
+    except Exception:
+        return None
+    n = len(cols)
+    out = np.empty((n, TOP_S), np.uint8)
+    if n == 0:
+        return out
+    flat = np.ascontiguousarray(flat_probs)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    nthreads = int(os.environ.get("LOFREQ_NATIVE_THREADS",
+                                  min(4, os.cpu_count() or 1)))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    if flat.dtype == np.uint8:
+        lib.lfq_screen_codes_u8(
+            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            starts.ctypes.data_as(i64p), cols.ctypes.data_as(i64p),
+            ctypes.c_int64(n), ctypes.c_int32(TOP_S),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int32(nthreads))
+    else:
+        lib.lfq_screen_codes(
+            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            starts.ctypes.data_as(i64p), cols.ctypes.data_as(i64p),
+            ctypes.c_int64(n), ctypes.c_int32(TOP_S),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int32(nthreads))
+    return out
+
+
+def prescreen_codes(codes, ks, bonf, sig,
+                    topk_max: int = 64) -> np.ndarray:
+    """Top-k product lower bound straight from the codes: the product of
+    the k largest decoded probs is exp(-(ln2/8) * sum of the k smallest
+    codes) — an integer cumsum instead of a partition+log pass.  Decodes
+    are <= the true probs, so the bound is a lower bound of the true
+    top-k product, itself a lower bound of the Poisson-binomial tail:
+    discarding on (bound * bonf > sig) is provably output-identical
+    (same argument as caller._topk_prescreen; the 0.5 slack is kept for
+    uniformity although the code sum is exact integer math).  Rows with
+    ks outside [1, topk_max] or whose k-th code is padding (255 = a
+    zero prob: the bound degenerates) are kept.  Returns keep mask."""
+    B = codes.shape[0]
+    if B == 0:
+        return np.ones(0, bool)
+    ks = np.asarray(ks, dtype=np.int64)
+    kmax = int(min(max(int(ks.max(initial=1)), 1), topk_max))
+    csum = np.cumsum(codes[:, :kmax].astype(np.int64), axis=1)
+    k_idx = np.clip(np.minimum(ks, kmax) - 1, 0, kmax - 1)
+    rows = np.arange(B)
+    code_sum = csum[rows, k_idx]
+    kth = codes[rows, k_idx]
+    lb_log = -LN2_8 * code_sum.astype(np.float64)
+    bounded = (ks >= 1) & (ks <= topk_max) & (kth < 255)
+    with np.errstate(divide="ignore"):
+        discard = bounded & (
+            lb_log + np.log(np.asarray(bonf, dtype=np.float64))
+            + np.log(0.5) > np.log(np.float64(sig)))
+    return ~discard
+
+
+def host_screen_tail_codes(codes, ks, bonf, sig) -> np.ndarray:
+    """Host fallback of the code sub-screen: the same clipped-K partial
+    tail DP as host_screen_tail, over the decoded codes (f64)."""
+    dec = np.zeros(256)
+    dec[:255] = np.exp2(-np.arange(255, dtype=np.float64) / 8.0)
+    return host_screen_tail(dec[codes], np.full(codes.shape[0],
+                                                codes.shape[1]),
+                            ks, bonf, sig)

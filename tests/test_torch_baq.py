@@ -30,11 +30,12 @@ import torch
 from lofreq_tpu.io.bam import BamRead
 from lofreq_tpu.ops.baq_hmm import realn_batch
 from lofreq_tpu.ops.baq_jax import _build as jax_build
+from lofreq_tpu.ops.baq_jax import extract_baq
 from lofreq_tpu.ops.pallas_baq import baq_pallas
 from lofreq_tpu_torch import _kernel_build
 from lofreq_tpu_torch.ops import baq_torch, cuda_baq, device_baq
 from lofreq_tpu_torch.ops.baq_torch import (_BASECODE, _Q2P, baq_batch,
-                                            baq_hmm_torch, extract_baq)
+                                            baq_hmm_torch)
 
 SHARE = 0.999
 
@@ -349,13 +350,13 @@ def test_cuh_body_degenerate_rows(cuh_shim):
 
 
 def _extract(bam, fa_len, region_len):
-    """lfq_extract_reads over one region of a simulated BAM: the eligible
-    reads' (codes, quals, pos, xb, xe), as native_ingest hands them to the
-    runner."""
-    from lofreq_tpu.io.bam import BamReader
-    from lofreq_tpu.pileup.engine import PileupConf
-    from lofreq_tpu.pileup.native_ingest import (_conf_struct, get_lib,
-                                                 raw_records_for_region)
+    """lfq_extract_reads of the port's native library over one region of
+    a simulated BAM: the eligible reads' (codes, quals, pos, xb, xe), as
+    the port's native_ingest hands them to the runner."""
+    from lofreq_tpu_torch.io.bam import BamReader
+    from lofreq_tpu_torch.pileup.engine import PileupConf
+    from lofreq_tpu_torch.pileup.native_ingest import (
+        _conf_struct, get_lib, raw_records_for_region)
 
     rdr = BamReader(bam)
     raw = raw_records_for_region(rdr, 0, 0, region_len)
@@ -435,9 +436,9 @@ def test_runner_cpu_matches_reference_runner(extracted, ext):
 
 
 def test_count_extracted_reads(sim_bam):
-    """The extraction counter sees every eligible read that
+    """The extraction counter sees every eligible read that the port's
     lfq_extract_reads flags, and leaves the library as it found it."""
-    from lofreq_tpu._native_build import get_native_lib
+    from lofreq_tpu_torch._native_build import get_native_lib
 
     bam, ref = sim_bam
     orig = get_native_lib().lfq_extract_reads
@@ -546,9 +547,12 @@ def test_runner_gpu_matches_cpu(extracted, ext):
 
 
 def test_module_names():
-    """The plain module re-exports the reference's host helpers."""
+    """The plain module keeps its own copies of the reference's HMM
+    parameters and of its base and q2p tables, equal to them."""
     from lofreq_tpu.ops import baq_jax
 
-    for name in ("PAR_D", "PAR_E", "EI", "EM", "_BASECODE", "_Q2P",
-                 "extract_baq"):
-        assert getattr(baq_torch, name) is getattr(baq_jax, name)
+    for name in ("PAR_D", "PAR_E", "EI", "EM"):
+        assert getattr(baq_torch, name) == getattr(baq_jax, name)
+    for name in ("_BASECODE", "_Q2P"):
+        a, b = getattr(baq_torch, name), getattr(baq_jax, name)
+        assert a is not b and a.dtype == b.dtype and np.array_equal(a, b)

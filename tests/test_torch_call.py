@@ -4,7 +4,8 @@
    screen on the CPU (the plain PyTorch DP) vs lofreq_tpu's run_call with
    its JAX screen on and off: identical records and test counts, and the
    port's screen really ran.
-2. The port's CLI `call` with the device screen forced on, on every case
+2. The port's CLI `call` with the device screen forced on, on the CPU
+   (--device=cpu, the plain PyTorch versions), on every case
    of the reference goldens (tests/golden/call_e2e.json): byte-identical
    VCF modulo ##fileDate and identical "Number of ... tests performed"
    lines, as tests/test_call_e2e_differential.py checks the reference
@@ -130,7 +131,8 @@ def _cli_case(case, tmp_path, monkeypatch, capsys, extra):
 @pytest.mark.parametrize(
     "ci", range(len(_CASES)), ids=[c["name"] for c in _CASES])
 def test_cli_call_golden(ci, tmp_path, monkeypatch, capsys):
-    _check_golden(_CASES[ci], tmp_path, monkeypatch, capsys, [])
+    _check_golden(_CASES[ci], tmp_path, monkeypatch, capsys,
+                  ["--device=cpu"])
 
 
 def _check_golden(case, tmp_path, monkeypatch, capsys, extra):
@@ -161,7 +163,7 @@ def test_cli_device_baq_golden(ci, tmp_path, monkeypatch, capsys):
     """--device-baq gives the VCF of the call without it: the device BAQ
     only screens, and candidates are confirmed with the exact C BAQ."""
     _check_golden(_CASES[ci], tmp_path, monkeypatch, capsys,
-                  ["--device-baq"])
+                  ["--device-baq", "--device=cpu"])
 
 
 def _indelqual_bam(art, tmp_path):
@@ -241,6 +243,7 @@ def test_port_device_baq_matches_reference(name, tmp_path):
 def test_cli_profile_writes_trace(tmp_path, monkeypatch, capsys):
     prof = tmp_path / "prof"
     rc, err = _cli_case(_CASES[0], tmp_path, monkeypatch, capsys,
-                        ["--device-screen", "--profile", str(prof)])
+                        ["--device-screen", "--device=cpu", "--profile",
+                         str(prof)])
     assert rc == 0, err
     assert any(p.name.endswith(".json") for p in prof.iterdir())
