@@ -18,14 +18,20 @@
 // 16 lanes, the first 4 of pallas_baq's 7 over 128: a outside the band
 // feeds only masked cells, so the band-limited chain is exact.
 //
-// LfqBand holds one band row.  Under nvcc it is one float in each thread
-// of a half-warp (16 threads per read, 2 reads per warp) and the
-// cross-lane steps are warp shuffles and ballots; under g++ it is 16
-// floats and the same steps are loops that reproduce the shuffles' order
-// of operations (the butterfly sums included).  The kernels build with
-// -fmad=false and the CPU tests build this header with -ffp-contract=off,
-// so both round every multiply and add on its own, as the plain version
-// does, and the CPU tests run the kernels' own arithmetic.
+// Two types hold one band row, and the per-read bodies are templates
+// written once for both:
+//  * LfqBand16: 16 floats, one thread's registers once every loop over the
+//    lanes is unrolled (each lane index is then a constant).  Its steps
+//    are loops that take the half-warp's order of operations: the shifts
+//    and the chain read the old row, and the sums and maxima are the same
+//    butterfly trees.  K4 runs one read per thread on it; g++ builds the
+//    CPU tests' form of both passes on it.
+//  * LfqBandLane (nvcc only): one float in each thread of a half-warp (16
+//    threads per read, 2 reads per warp); the cross-lane steps are warp
+//    shuffles and ballots.  K3 runs on it.
+// Both round every multiply and add on its own (the kernels build with
+// -fmad=false, the CPU tests with -ffp-contract=off), so K4's q and st
+// equal the g++ form's bit for bit, and K3's rows equal its rows.
 //
 // Held to the plain version, and where a band kernel can go wrong:
 //  * st's k is the 0-based WINDOW lane, k = i - bw + u - 1, not the band
@@ -62,9 +68,15 @@
 #ifdef __CUDACC__
 #define LFQ_BAQ_HD __host__ __device__ __forceinline__
 #define LFQ_BAQ_BODY __device__ __forceinline__
+#define LFQ_BAQ_MEMBER static __device__ __forceinline__
+#define LFQ_BAQ_METHOD __device__ __forceinline__
+#define LFQ_BAQ_UNROLL _Pragma("unroll")
 #else
 #define LFQ_BAQ_HD static inline
 #define LFQ_BAQ_BODY static inline
+#define LFQ_BAQ_MEMBER static inline
+#define LFQ_BAQ_METHOD inline
+#define LFQ_BAQ_UNROLL _Pragma("GCC unroll 16")
 #endif
 
 // Transition constants for read length L, computed in f64 and rounded to
@@ -103,6 +115,11 @@ LFQ_BAQ_HD float lfq_baq_emit(int r, int qc, float qp) {
     return r == qc ? 1.0f - qp : qp * LFQ_BAQ_EM;
 }
 
+// Window code at index j: code 4 outside [0, Lr).
+LFQ_BAQ_HD int lfq_baq_code(const uint8_t *refw, int Lr, int j) {
+    return (j >= 0 && j < Lr) ? refw[j] : 4;
+}
+
 // Band lanes of row i: k in [max(1, i - bw), min(lim, i + bw)], lim =
 // min(l_ref, Lr).  An empty band gives lo > hi.
 LFQ_BAQ_HD int lfq_baq_lo(int i) {
@@ -123,49 +140,269 @@ LFQ_BAQ_HD int lfq_baq_phred(float rest, float best) {
     return q > 100 ? 99 : q;
 }
 
+// ---- one band row as 16 floats: one thread's registers ----
+
+#define LFQ_EACH(u) LFQ_BAQ_UNROLL for (int u = 0; u < LFQ_BAQ_LANES; ++u)
+
+struct LfqBand16 {
+    float v[LFQ_BAQ_LANES];
+
+    LFQ_BAQ_MEMBER bool leader() { return true; }
+
+    LFQ_BAQ_MEMBER LfqBand16 splat(float x) {
+        LfqBand16 r;
+        LFQ_EACH(u) r.v[u] = x;
+        return r;
+    }
+
+    LFQ_BAQ_MEMBER LfqBand16 load(const float *p) {
+        LfqBand16 r;
+        LFQ_EACH(u) r.v[u] = p[u];
+        return r;
+    }
+
+    // emission row: lane u against window index k0 + u (code 4 outside
+    // [0, Lr))
+    LFQ_BAQ_MEMBER LfqBand16 emit_row(const uint8_t *refw, int Lr, int k0,
+                                      int qc, float qp) {
+        LfqBand16 r;
+        LFQ_EACH(u) r.v[u] = lfq_baq_emit(lfq_baq_code(refw, Lr, k0 + u), qc,
+                                          qp);
+        return r;
+    }
+
+    // The 16 window codes of a row, 4 to a word.  The backward pass walks
+    // the rows down, and row i-1's window is row i's one lane lower, so a
+    // row loads one code instead of 16.
+    struct Window {
+        uint32_t w[4];
+
+        LFQ_BAQ_METHOD void init(const uint8_t *refw, int Lr, int k0) {
+            LFQ_BAQ_UNROLL
+            for (int x = 0; x < 4; ++x) {
+                w[x] = 0;
+                LFQ_BAQ_UNROLL
+                for (int y = 0; y < 4; ++y)
+                    w[x] |= (uint32_t)lfq_baq_code(refw, Lr, k0 + 4 * x + y)
+                            << (8 * y);
+            }
+        }
+        // the window of k0 = the previous k0 - 1
+        LFQ_BAQ_METHOD void down(const uint8_t *refw, int Lr, int k0) {
+            w[3] = (w[3] << 8) | (w[2] >> 24);
+            w[2] = (w[2] << 8) | (w[1] >> 24);
+            w[1] = (w[1] << 8) | (w[0] >> 24);
+            w[0] = (w[0] << 8) | (uint32_t)lfq_baq_code(refw, Lr, k0);
+        }
+        LFQ_BAQ_METHOD LfqBand16 emit(int qc, float qp) const {
+            LfqBand16 r;
+            LFQ_EACH(u) r.v[u] = lfq_baq_emit(
+                (int)((w[u >> 2] >> (8 * (u & 3))) & 0xff), qc, qp);
+            return r;
+        }
+    };
+};
+
+LFQ_BAQ_BODY LfqBand16 operator+(const LfqBand16 &a, const LfqBand16 &b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = a.v[u] + b.v[u];
+    return r;
+}
+LFQ_BAQ_BODY LfqBand16 operator*(const LfqBand16 &a, const LfqBand16 &b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = a.v[u] * b.v[u];
+    return r;
+}
+LFQ_BAQ_BODY LfqBand16 operator*(float a, const LfqBand16 &b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = a * b.v[u];
+    return r;
+}
+LFQ_BAQ_BODY LfqBand16 operator*(const LfqBand16 &a, float b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = a.v[u] * b;
+    return r;
+}
+LFQ_BAQ_BODY LfqBand16 operator/(const LfqBand16 &a, float b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = a.v[u] / b;
+    return r;
+}
+
+// a where c, else b, lane by lane
+LFQ_BAQ_BODY LfqBand16 lfq_select(bool c, const LfqBand16 &a,
+                                  const LfqBand16 &b) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = c ? a.v[u] : b.v[u];
+    return r;
+}
+
+// a on lanes lo..hi, 0 elsewhere
+LFQ_BAQ_BODY LfqBand16 lfq_keep(const LfqBand16 &a, int lo, int hi) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = (u >= lo && u <= hi) ? a.v[u] : 0.0f;
+    return r;
+}
+
+LFQ_BAQ_BODY LfqBand16 lfq_zero_lane(const LfqBand16 &a, int u0) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = u == u0 ? 0.0f : a.v[u];
+    return r;
+}
+
+// lane u <- lane u-1, lane 0 <- 0
+LFQ_BAQ_BODY LfqBand16 lfq_shl(const LfqBand16 &a) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = u == 0 ? 0.0f : a.v[u - 1];
+    return r;
+}
+
+// lane u <- lane u+1, lane 15 <- 0
+LFQ_BAQ_BODY LfqBand16 lfq_shr(const LfqBand16 &a) {
+    LfqBand16 r;
+    LFQ_EACH(u) r.v[u] = u == LFQ_BAQ_LANES - 1 ? 0.0f : a.v[u + 1];
+    return r;
+}
+
+// y[u] = sum_{j<=u} a[j] m22^(u-j) by doubling
+LFQ_BAQ_BODY LfqBand16 lfq_chain_fwd(const LfqBand16 &a,
+                                     const float (&w)[4]) {
+    LfqBand16 y = a;
+    LFQ_BAQ_UNROLL
+    for (int t = 0; t < 4; ++t) {
+        const int sh = 1 << t;
+        const LfqBand16 old = y;
+        LFQ_EACH(u) if (u >= sh) y.v[u] = old.v[u] + w[t] * old.v[u - sh];
+    }
+    return y;
+}
+
+// y[u] = sum_{j>=u} a[j] m22^(j-u) by doubling
+LFQ_BAQ_BODY LfqBand16 lfq_chain_rev(const LfqBand16 &a,
+                                     const float (&w)[4]) {
+    LfqBand16 y = a;
+    LFQ_BAQ_UNROLL
+    for (int t = 0; t < 4; ++t) {
+        const int sh = 1 << t;
+        const LfqBand16 old = y;
+        LFQ_EACH(u) if (u + sh < LFQ_BAQ_LANES) {
+            y.v[u] = old.v[u] + w[t] * old.v[u + sh];
+        }
+    }
+    return y;
+}
+
+// the half-warp's butterfly; lane 0's value
+LFQ_BAQ_BODY float lfq_sum(const LfqBand16 &a) {
+    LfqBand16 s = a;
+    LFQ_BAQ_UNROLL
+    for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1) {
+        const LfqBand16 old = s;
+        LFQ_EACH(u) s.v[u] = old.v[u] + old.v[u ^ off];
+    }
+    return s.v[0];
+}
+
+LFQ_BAQ_BODY float lfq_max(const LfqBand16 &a) {
+    LfqBand16 s = a;
+    LFQ_BAQ_UNROLL
+    for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1) {
+        const LfqBand16 old = s;
+        LFQ_EACH(u) s.v[u] = fmaxf(old.v[u], old.v[u ^ off]);
+    }
+    return s.v[0];
+}
+
+// lowest lane with a >= x, or 16 when none: a scan from the top
+LFQ_BAQ_BODY int lfq_first_ge(const LfqBand16 &a, float x) {
+    int r = LFQ_BAQ_LANES;
+    LFQ_BAQ_UNROLL
+    for (int u = LFQ_BAQ_LANES - 1; u >= 0; --u) r = a.v[u] >= x ? u : r;
+    return r;
+}
+
+LFQ_BAQ_BODY void lfq_store(float *p, const LfqBand16 &a) {
+    LFQ_EACH(u) p[u] = a.v[u];
+}
+
+#undef LFQ_EACH
+
 #ifdef __CUDACC__
 // ---- one band row per half-warp: lane u holds cell u ----
 #define LFQ_BAQ_FULL 0xffffffffu
 
-struct LfqBand {
+__device__ __forceinline__ int lfq_lane() { return threadIdx.x & 15; }
+
+struct LfqBandLane {
     float v;
+
+    LFQ_BAQ_MEMBER bool leader() { return lfq_lane() == 0; }
+    LFQ_BAQ_MEMBER LfqBandLane splat(float x) { return {x}; }
+
+    // emission row: lane u against window index k0 + u (code 4 outside
+    // [0, Lr))
+    LFQ_BAQ_MEMBER LfqBandLane emit_row(const uint8_t *refw, int Lr, int k0,
+                                        int qc, float qp) {
+        return {lfq_baq_emit(lfq_baq_code(refw, Lr, k0 + lfq_lane()), qc,
+                             qp)};
+    }
+
+    // a lane's own window code
+    struct Window {
+        int code;
+
+        __device__ void init(const uint8_t *refw, int Lr, int k0) {
+            code = lfq_baq_code(refw, Lr, k0 + lfq_lane());
+        }
+        __device__ void down(const uint8_t *refw, int Lr, int k0) {
+            init(refw, Lr, k0);
+        }
+        __device__ LfqBandLane emit(int qc, float qp) const {
+            return {lfq_baq_emit(code, qc, qp)};
+        }
+    };
 };
 
-__device__ __forceinline__ int lfq_lane() { return threadIdx.x & 15; }
-LFQ_BAQ_BODY bool lfq_leader() { return lfq_lane() == 0; }
+LFQ_BAQ_BODY LfqBandLane lfq_select(bool c, LfqBandLane a, LfqBandLane b) {
+    return {c ? a.v : b.v};
+}
 
-LFQ_BAQ_BODY LfqBand operator+(LfqBand a, LfqBand b) { return {a.v + b.v}; }
-LFQ_BAQ_BODY LfqBand operator*(LfqBand a, LfqBand b) { return {a.v * b.v}; }
-LFQ_BAQ_BODY LfqBand operator*(float a, LfqBand b) { return {a * b.v}; }
-LFQ_BAQ_BODY LfqBand operator*(LfqBand a, float b) { return {a.v * b}; }
-LFQ_BAQ_BODY LfqBand operator/(LfqBand a, float b) { return {a.v / b}; }
+LFQ_BAQ_BODY LfqBandLane operator+(LfqBandLane a, LfqBandLane b) {
+    return {a.v + b.v};
+}
+LFQ_BAQ_BODY LfqBandLane operator*(LfqBandLane a, LfqBandLane b) {
+    return {a.v * b.v};
+}
+LFQ_BAQ_BODY LfqBandLane operator*(float a, LfqBandLane b) {
+    return {a * b.v};
+}
+LFQ_BAQ_BODY LfqBandLane operator*(LfqBandLane a, float b) {
+    return {a.v * b};
+}
+LFQ_BAQ_BODY LfqBandLane operator/(LfqBandLane a, float b) {
+    return {a.v / b};
+}
 
-LFQ_BAQ_BODY LfqBand lfq_splat(float x) { return {x}; }
-
-// a on lanes lo..hi, 0 elsewhere
-LFQ_BAQ_BODY LfqBand lfq_keep(LfqBand a, int lo, int hi) {
+LFQ_BAQ_BODY LfqBandLane lfq_keep(LfqBandLane a, int lo, int hi) {
     const int u = lfq_lane();
     return {(u >= lo && u <= hi) ? a.v : 0.0f};
 }
 
-LFQ_BAQ_BODY LfqBand lfq_zero_lane(LfqBand a, int u0) {
+LFQ_BAQ_BODY LfqBandLane lfq_zero_lane(LfqBandLane a, int u0) {
     return {lfq_lane() == u0 ? 0.0f : a.v};
 }
 
-// lane u <- lane u-1, lane 0 <- 0
-LFQ_BAQ_BODY LfqBand lfq_shl(LfqBand a) {
+LFQ_BAQ_BODY LfqBandLane lfq_shl(LfqBandLane a) {
     const float r = __shfl_up_sync(LFQ_BAQ_FULL, a.v, 1, LFQ_BAQ_LANES);
     return {lfq_lane() == 0 ? 0.0f : r};
 }
 
-// lane u <- lane u+1, lane 15 <- 0
-LFQ_BAQ_BODY LfqBand lfq_shr(LfqBand a) {
+LFQ_BAQ_BODY LfqBandLane lfq_shr(LfqBandLane a) {
     const float r = __shfl_down_sync(LFQ_BAQ_FULL, a.v, 1, LFQ_BAQ_LANES);
     return {lfq_lane() == LFQ_BAQ_LANES - 1 ? 0.0f : r};
 }
 
-// y[u] = sum_{j<=u} a[j] m22^(u-j) by doubling
-LFQ_BAQ_BODY LfqBand lfq_chain_fwd(LfqBand a, const float (&w)[4]) {
+LFQ_BAQ_BODY LfqBandLane lfq_chain_fwd(LfqBandLane a, const float (&w)[4]) {
     const int u = lfq_lane();
     float y = a.v;
 #pragma unroll
@@ -177,8 +414,7 @@ LFQ_BAQ_BODY LfqBand lfq_chain_fwd(LfqBand a, const float (&w)[4]) {
     return {y};
 }
 
-// y[u] = sum_{j>=u} a[j] m22^(j-u) by doubling
-LFQ_BAQ_BODY LfqBand lfq_chain_rev(LfqBand a, const float (&w)[4]) {
+LFQ_BAQ_BODY LfqBandLane lfq_chain_rev(LfqBandLane a, const float (&w)[4]) {
     const int u = lfq_lane();
     float y = a.v;
 #pragma unroll
@@ -191,7 +427,7 @@ LFQ_BAQ_BODY LfqBand lfq_chain_rev(LfqBand a, const float (&w)[4]) {
 }
 
 // butterfly over the 16 lanes; every lane ends with the same value
-LFQ_BAQ_BODY float lfq_sum(LfqBand a) {
+LFQ_BAQ_BODY float lfq_sum(LfqBandLane a) {
     float s = a.v;
 #pragma unroll
     for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1)
@@ -199,7 +435,7 @@ LFQ_BAQ_BODY float lfq_sum(LfqBand a) {
     return s;
 }
 
-LFQ_BAQ_BODY float lfq_max(LfqBand a) {
+LFQ_BAQ_BODY float lfq_max(LfqBandLane a) {
     float s = a.v;
 #pragma unroll
     for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1)
@@ -207,159 +443,29 @@ LFQ_BAQ_BODY float lfq_max(LfqBand a) {
     return s;
 }
 
-// lowest lane with a >= x, or 16 when none
-LFQ_BAQ_BODY int lfq_first_ge(LfqBand a, float x) {
+LFQ_BAQ_BODY int lfq_first_ge(LfqBandLane a, float x) {
     const unsigned bal = __ballot_sync(LFQ_BAQ_FULL, a.v >= x);
     const unsigned half = (bal >> (threadIdx.x & 16)) & 0xffffu;
     return half ? __ffs(half) - 1 : LFQ_BAQ_LANES;
 }
 
-LFQ_BAQ_BODY LfqBand lfq_load(const float *p) { return {p[lfq_lane()]}; }
-LFQ_BAQ_BODY void lfq_store(float *p, LfqBand a) { p[lfq_lane()] = a.v; }
-
-// emission row: lane u against window index k0 + u (code 4 outside [0, Lr))
-LFQ_BAQ_BODY LfqBand lfq_emit_row(const uint8_t *refw, int Lr, int k0,
-                                  int qc, float qp) {
-    const int j = k0 + lfq_lane();
-    const int r = (j >= 0 && j < Lr) ? refw[j] : 4;
-    return {lfq_baq_emit(r, qc, qp)};
-}
-
-#else
-// ---- host: one band row as 16 floats; the same steps as loops ----
-struct LfqBand {
-    float v[LFQ_BAQ_LANES];
-};
-
-#define LFQ_EACH(u) for (int u = 0; u < LFQ_BAQ_LANES; ++u)
-
-LFQ_BAQ_BODY bool lfq_leader() { return true; }
-
-LFQ_BAQ_BODY LfqBand operator+(const LfqBand &a, const LfqBand &b) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = a.v[u] + b.v[u];
-    return r;
-}
-LFQ_BAQ_BODY LfqBand operator*(const LfqBand &a, const LfqBand &b) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = a.v[u] * b.v[u];
-    return r;
-}
-LFQ_BAQ_BODY LfqBand operator*(float a, const LfqBand &b) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = a * b.v[u];
-    return r;
-}
-LFQ_BAQ_BODY LfqBand operator*(const LfqBand &a, float b) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = a.v[u] * b;
-    return r;
-}
-LFQ_BAQ_BODY LfqBand operator/(const LfqBand &a, float b) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = a.v[u] / b;
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_splat(float x) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = x;
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_keep(const LfqBand &a, int lo, int hi) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = (u >= lo && u <= hi) ? a.v[u] : 0.0f;
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_zero_lane(const LfqBand &a, int u0) {
-    LfqBand r = a;
-    if (u0 >= 0 && u0 < LFQ_BAQ_LANES) r.v[u0] = 0.0f;
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_shl(const LfqBand &a) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = u == 0 ? 0.0f : a.v[u - 1];
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_shr(const LfqBand &a) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = u == LFQ_BAQ_LANES - 1 ? 0.0f : a.v[u + 1];
-    return r;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_chain_fwd(const LfqBand &a, const float (&w)[4]) {
-    LfqBand y = a;
-    for (int t = 0; t < 4; ++t) {
-        const int sh = 1 << t;
-        const LfqBand old = y;
-        LFQ_EACH(u) if (u >= sh) y.v[u] = old.v[u] + w[t] * old.v[u - sh];
-    }
-    return y;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_chain_rev(const LfqBand &a, const float (&w)[4]) {
-    LfqBand y = a;
-    for (int t = 0; t < 4; ++t) {
-        const int sh = 1 << t;
-        const LfqBand old = y;
-        LFQ_EACH(u) if (u + sh < LFQ_BAQ_LANES) {
-            y.v[u] = old.v[u] + w[t] * old.v[u + sh];
-        }
-    }
-    return y;
-}
-
-LFQ_BAQ_BODY float lfq_sum(const LfqBand &a) {
-    LfqBand s = a;
-    for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1) {
-        const LfqBand old = s;
-        LFQ_EACH(u) s.v[u] = old.v[u] + old.v[u ^ off];
-    }
-    return s.v[0];
-}
-
-LFQ_BAQ_BODY float lfq_max(const LfqBand &a) {
-    LfqBand s = a;
-    for (int off = LFQ_BAQ_LANES / 2; off >= 1; off >>= 1) {
-        const LfqBand old = s;
-        LFQ_EACH(u) s.v[u] = fmaxf(old.v[u], old.v[u ^ off]);
-    }
-    return s.v[0];
-}
-
-LFQ_BAQ_BODY int lfq_first_ge(const LfqBand &a, float x) {
-    LFQ_EACH(u) if (a.v[u] >= x) return u;
-    return LFQ_BAQ_LANES;
-}
-
-LFQ_BAQ_BODY LfqBand lfq_load(const float *p) {
-    LfqBand r;
-    LFQ_EACH(u) r.v[u] = p[u];
-    return r;
-}
-
-LFQ_BAQ_BODY void lfq_store(float *p, const LfqBand &a) {
-    LFQ_EACH(u) p[u] = a.v[u];
-}
-
-LFQ_BAQ_BODY LfqBand lfq_emit_row(const uint8_t *refw, int Lr, int k0,
-                                  int qc, float qp) {
-    LfqBand r;
-    LFQ_EACH(u) {
-        const int j = k0 + u;
-        r.v[u] = lfq_baq_emit((j >= 0 && j < Lr) ? refw[j] : 4, qc, qp);
-    }
-    return r;
-}
-
-#undef LFQ_EACH
+LFQ_BAQ_BODY void lfq_store(float *p, LfqBandLane a) { p[lfq_lane()] = a.v; }
 #endif
 
-// ---- the per-read bodies, written once for both LfqBand types ----
+// The forward pass's M and I band rows of one read, row r as it is asked
+// for.  The kernel has its own source, which stages the rows in shared
+// memory.
+template <class Band>
+struct LfqRowsDirect {
+    const float *fm, *fi;  // [L][16] each
+
+    LFQ_BAQ_METHOD void get(int r, Band &zM, Band &zI) {
+        zM = Band::load(fm + (int64_t)r * LFQ_BAQ_LANES);
+        zI = Band::load(fi + (int64_t)r * LFQ_BAQ_LANES);
+    }
+};
+
+// ---- the per-read bodies, written once for both band types ----
 
 // Forward pass of one read (K3).  refw [Lr] window codes, query [L] read
 // codes, qualp [L] error probs.  Writes the scaled M and I band rows to
@@ -367,6 +473,7 @@ LFQ_BAQ_BODY LfqBand lfq_emit_row(const uint8_t *refw, int Lr, int k0,
 // read (the ragged edge of the last block) computes on a live read's
 // inputs, so that its half-warp's shuffles stay in step, and writes
 // nothing.
+template <class Band>
 LFQ_BAQ_BODY void lfq_baq_forward(const uint8_t *refw, int Lr, int l_ref,
                                   const uint8_t *query, const float *qualp,
                                   int L, const LfqBaqConsts &c, float *fm,
@@ -377,28 +484,27 @@ LFQ_BAQ_BODY void lfq_baq_forward(const uint8_t *refw, int Lr, int l_ref,
     const float bM = c.bm_num / lref, bI = c.bi_num / lref;
     // row 1: k in [1, min(l_ref, bw + 1)], which is row 1's band
     int lo = lfq_baq_lo(1), hi = lfq_baq_hi(1, lim);
-    LfqBand e = lfq_emit_row(refw, Lr, -bw, query[0], qualp[0]);
-    LfqBand fM = lfq_keep(e * bM, lo, hi);
-    LfqBand fI = lfq_keep(lfq_splat(LFQ_BAQ_EI * bI), lo, hi);
-    LfqBand fD = lfq_splat(0.0f);
+    Band e = Band::emit_row(refw, Lr, -bw, query[0], qualp[0]);
+    Band fM = lfq_keep(e * bM, lo, hi);
+    Band fI = lfq_keep(Band::splat(LFQ_BAQ_EI * bI), lo, hi);
+    Band fD = Band::splat(0.0f);
     float s = fmaxf(lfq_sum(fM + fI), 1e-30f);
     fM = fM / s;
     fI = fI / s;
     if (live) {
         lfq_store(fm, fM);
         lfq_store(fi, fI);
-        if (lfq_leader()) fs[0] = s;
+        if (Band::leader()) fs[0] = s;
     }
     for (int i = 2; i <= L; ++i) {
         lo = lfq_baq_lo(i);
         hi = lfq_baq_hi(i, lim);
-        e = lfq_emit_row(refw, Lr, i - bw - 1, query[i - 1], qualp[i - 1]);
-        LfqBand newM = e * (c.m00 * fM + c.m10 * fI + c.m20 * fD);
-        LfqBand newI = LFQ_BAQ_EI * (c.m01 * lfq_shr(fM)
-                                     + c.m11 * lfq_shr(fI));
+        e = Band::emit_row(refw, Lr, i - bw - 1, query[i - 1], qualp[i - 1]);
+        Band newM = e * (c.m00 * fM + c.m10 * fI + c.m20 * fD);
+        Band newI = LFQ_BAQ_EI * (c.m01 * lfq_shr(fM) + c.m11 * lfq_shr(fI));
         newM = lfq_keep(newM, lo, hi);
         newI = lfq_keep(newI, lo, hi);
-        const LfqBand newD =
+        const Band newD =
             lfq_keep(lfq_chain_fwd(c.m02 * lfq_shl(newM), c.w), lo, hi);
         s = fmaxf(lfq_sum(newM + newI + newD), 1e-30f);
         const float inv = 1.0f / s;
@@ -408,65 +514,87 @@ LFQ_BAQ_BODY void lfq_baq_forward(const uint8_t *refw, int Lr, int l_ref,
         if (live) {
             lfq_store(fm + (int64_t)(i - 1) * LFQ_BAQ_LANES, fM);
             lfq_store(fi + (int64_t)(i - 1) * LFQ_BAQ_LANES, fI);
-            if (lfq_leader()) fs[i - 1] = s;
+            if (Band::leader()) fs[i - 1] = s;
         }
     }
 }
 
 // MAP phred and state of row i from its posterior band rows.
-LFQ_BAQ_BODY void lfq_baq_map(const LfqBand &zM, const LfqBand &zI, int i,
+template <class Band>
+LFQ_BAQ_BODY void lfq_baq_map(const Band &zM, const Band &zI, int i,
                               int32_t *q, int32_t *st, bool live) {
     const float best_m = lfq_max(zM), best_i = lfq_max(zI);
     const bool is_ins = best_i > best_m;
     const float best = is_ins ? best_i : best_m;
-    const int u = lfq_first_ge(is_ins ? zI : zM, best);
-    const float rest = lfq_sum(is_ins ? zM : lfq_zero_lane(zM, u))
-                       + lfq_sum(is_ins ? lfq_zero_lane(zI, u) : zI);
+    // lane-by-lane selects: a conditional between the two rows would take
+    // their addresses and put them in local memory
+    const int u = lfq_first_ge(lfq_select(is_ins, zI, zM), best);
+    const float rest = lfq_sum(lfq_select(is_ins, zM, lfq_zero_lane(zM, u)))
+                       + lfq_sum(lfq_select(is_ins, lfq_zero_lane(zI, u), zI));
     // the full window's first maximum: a band lane when best > 0, window
     // lane 0 when the row is all zero
     const int k = best > 0.0f ? i - LFQ_BAQ_BW + u - 1 : 0;
-    if (live && lfq_leader()) {
+    if (live && Band::leader()) {
         *q = lfq_baq_phred(rest, best);
         *st = (k << 2) | (is_ins ? 1 : 0);
     }
 }
 
+// Row j's backward step from row j+1's: (bM, bI) <- row j's.  e is row
+// j+1's emission row; lo, hi row j's band lanes.  FULL: the band is the
+// whole of lanes 0..14 (8 <= j <= lim - 7), given as constants so that
+// the lane masks fold away.
+template <bool FULL, class Band>
+LFQ_BAQ_BODY void lfq_baq_back_step(Band &bM, Band &bI, const Band &e,
+                                    int j, int lim, float inv,
+                                    const LfqBaqConsts &c) {
+    const int lo = FULL ? 0 : lfq_baq_lo(j);
+    const int hi = FULL ? 2 * LFQ_BAQ_BW : lfq_baq_hi(j, lim);
+    // row j+1's e * bM at k+1 is lane u of row j+1: the same lane
+    const Band eb = e * bM;
+    const Band common = LFQ_BAQ_EI * lfq_shl(bI);
+    Band bD = lfq_chain_rev(lfq_keep(eb * c.m20, lo, hi), c.w);
+    bD = lfq_keep(bD * (j > 1 ? 1.0f : 0.0f), lo, hi);
+    const Band bD_next = lfq_shr(bD);
+    const Band nM = eb * c.m00 + c.m01 * common + c.m02 * bD_next;
+    const Band nI = eb * c.m10 + c.m11 * common;
+    bM = lfq_keep(nM, lo, hi) * inv;
+    bI = lfq_keep(nI, lo, hi) * inv;
+}
+
 // Backward pass of one read with the per-row MAP (K4), from the forward
-// pass's fm, fi and fs.  Writes q and st ([L]) when live.
+// pass's M and I band rows (`rows`, row r of [L][16] as asked for) and its
+// row scales fs ([L]).  Writes q and st ([L]) when live.  Row i's MAP and
+// row i-1's backward step are independent; the window codes walk down with
+// the rows (Band::Window).
+template <class Band, class Rows>
 LFQ_BAQ_BODY void lfq_baq_backward(const uint8_t *refw, int Lr, int l_ref,
                                    const uint8_t *query, const float *qualp,
-                                   int L, const LfqBaqConsts &c,
-                                   const float *fm, const float *fi,
+                                   int L, const LfqBaqConsts &c, Rows &rows,
                                    const float *fs, int32_t *q, int32_t *st,
                                    bool live) {
     const int bw = LFQ_BAQ_BW;
     const int lim = l_ref < Lr ? l_ref : Lr;
     // row L begins from the end states
-    const int64_t rowL = (int64_t)(L - 1) * LFQ_BAQ_LANES;
-    LfqBand zM = lfq_load(fm + rowL), zI = lfq_load(fi + rowL);
+    Band zM, zI;
+    rows.get(L - 1, zM, zI);
     const float sL1 = lfq_sum(zM * c.sM + zI * c.sI);
-    int lo = lfq_baq_lo(L), hi = lfq_baq_hi(L, lim);
-    LfqBand bM = lfq_keep(lfq_splat(c.sM / fs[L - 1] / sL1), lo, hi);
-    LfqBand bI = lfq_keep(lfq_splat(c.sI / fs[L - 1] / sL1), lo, hi);
-    lfq_baq_map(zM * bM, zI * bI, L, q + L - 1, st + L - 1, live);
-    for (int i = L - 1; i >= 1; --i) {
-        lo = lfq_baq_lo(i);
-        hi = lfq_baq_hi(i, lim);
-        // row i+1's e * bM at k+1 is lane u of row i+1: the same lane
-        const LfqBand eb =
-            lfq_emit_row(refw, Lr, i - bw, query[i], qualp[i]) * bM;
-        const LfqBand common = LFQ_BAQ_EI * lfq_shl(bI);
-        LfqBand bD = lfq_chain_rev(lfq_keep(eb * c.m20, lo, hi), c.w);
-        bD = lfq_keep(bD * (i > 1 ? 1.0f : 0.0f), lo, hi);
-        const LfqBand bD_next = lfq_shr(bD);
-        const LfqBand nM = eb * c.m00 + c.m01 * common + c.m02 * bD_next;
-        const LfqBand nI = eb * c.m10 + c.m11 * common;
-        const float inv = 1.0f / fs[i - 1];
-        bM = lfq_keep(nM, lo, hi) * inv;
-        bI = lfq_keep(nI, lo, hi) * inv;
-        const int64_t row = (int64_t)(i - 1) * LFQ_BAQ_LANES;
-        zM = lfq_load(fm + row);
-        zI = lfq_load(fi + row);
+    const int lo = lfq_baq_lo(L), hi = lfq_baq_hi(L, lim);
+    Band bM = lfq_keep(Band::splat(c.sM / fs[L - 1] / sL1), lo, hi);
+    Band bI = lfq_keep(Band::splat(c.sI / fs[L - 1] / sL1), lo, hi);
+    typename Band::Window win;  // row L-1's window codes
+    win.init(refw, Lr, L - 1 - bw);
+    for (int i = L; i >= 1; --i) {
+        if (i < L) rows.get(i - 1, zM, zI);
         lfq_baq_map(zM * bM, zI * bI, i, q + i - 1, st + i - 1, live);
+        if (i == 1) break;
+        const int j = i - 1;
+        if (i < L) win.down(refw, Lr, j - bw);
+        const Band e = win.emit(query[j], qualp[j]);
+        const float inv = 1.0f / fs[j - 1];
+        if (j > bw && j <= lim - bw)
+            lfq_baq_back_step<true>(bM, bI, e, j, lim, inv, c);
+        else
+            lfq_baq_back_step<false>(bM, bI, e, j, lim, inv, c);
     }
 }

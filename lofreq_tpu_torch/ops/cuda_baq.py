@@ -9,10 +9,13 @@ fallback from one to the other.  `baq_forward` runs K3 alone (plain:
 baq_torch.forward_band_torch), so that K3 can be held against the plain
 forward pass by itself.
 
-The kernels index the band, not the window: K3 writes the scaled M and I
-rows as 16 band lanes per row to a scratch this wrapper allocates,
-[B, L, 16] f32 each, and the row scales [B, L] f32, 132 B per read and
-row (13.2 KB per read at L = 100); K4 reads them back.
+The kernels index the band, not the window: K3 (one half-warp per read)
+writes the scaled M and I rows as 16 band lanes per row to a scratch this
+wrapper allocates, [B, L, 16] f32 each, and the row scales [B, L] f32,
+132 B per read and row (13.2 KB per read at L = 100); K4 (one read per
+thread, the band in registers) reads them back.  K4's q and st equal
+those of the kernels' body built by g++ (testing/cuh_shims.py) bit for
+bit.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ device_baq.py and csrc/baq_hmm.cuh) against the reference's.
    decision margins against the C BAQ's flips.
 3. The kernels' per-read body (csrc/baq_hmm.cuh, plain C++ under g++)
    against the plain version, through a ctypes shim that walks the
-   kernels' grid, dead reads of the last block included.
+   kernels' grid, dead reads of the last block included, and the
+   generic backward pass against the half-warp body it replaced (a frozen
+   copy in tests/frozen_cuh/), bit for bit.
 4. The port's runner on the CPU against the reference's runner (JAX on
    the CPU) on lfq_extract_reads output of a simulated BAM.
 5. `gpu`-marked: K3/K4 and the runner on the card against the plain
@@ -21,7 +23,7 @@ only where the pre-truncation value sits at an integer boundary.
 """
 
 import ctypes
-import subprocess
+import os
 
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from lofreq_tpu_torch import _kernel_build
 from lofreq_tpu_torch.ops import baq_torch, cuda_baq, device_baq
 from lofreq_tpu_torch.ops.baq_torch import (_BASECODE, _Q2P, baq_batch,
                                             baq_hmm_torch)
+from lofreq_tpu_torch.testing import cuh_shims
 
 SHARE = 0.999
 
@@ -222,70 +225,17 @@ def test_baq_hmm_cpu_is_plain_and_not_counted():
 
 @pytest.fixture(scope="module")
 def cuh_shim(tmp_path_factory):
-    """csrc/baq_hmm.cuh built by g++ into a ctypes shim that walks the
-    kernels' grid: 8 reads per block, the dead reads of the last block on
-    the last real read's inputs, K3 into [n, L, 16] scratch, then K4
-    (-ffp-contract=off, as the kernels build with -fmad=false)."""
-    d = tmp_path_factory.mktemp("baq_shim")
-    src = d / "shim.cpp"
-    src.write_text(
-        '#include <vector>\n'
-        '#include "baq_hmm.cuh"\n'
-        'extern "C" void baq_grid(const uint8_t *refw, const uint8_t *query,'
-        ' const float *qualp, const int32_t *l_ref, long long n, int L,'
-        ' int Lr, int32_t *q, int32_t *st) {\n'
-        '  const LfqBaqConsts c = lfq_baq_consts(L);\n'
-        '  const long long n_pad = (n + 7) / 8 * 8;\n'
-        '  std::vector<float> fm(n_pad * L * 16), fi(n_pad * L * 16),\n'
-        '      fs(n_pad * L);\n'
-        '  for (int pass = 0; pass < 2; ++pass)\n'
-        '    for (long long r = 0; r < n_pad; ++r) {\n'
-        '      const bool live = r < n;\n'
-        '      const long long b = live ? r : n - 1;\n'
-        '      const long long rows = b * L;\n'
-        '      if (pass == 0)\n'
-        '        lfq_baq_forward(refw + b * Lr, Lr, l_ref[b], query + rows,\n'
-        '            qualp + rows, L, c, &fm[rows * 16], &fi[rows * 16],\n'
-        '            &fs[rows], live);\n'
-        '      else\n'
-        '        lfq_baq_backward(refw + b * Lr, Lr, l_ref[b], query + rows,\n'
-        '            qualp + rows, L, c, &fm[rows * 16], &fi[rows * 16],\n'
-        '            &fs[rows], q + rows, st + rows, live);\n'
-        '    }\n'
-        '}\n'
-        'extern "C" void baq_fwd_rows(const uint8_t *refw,'
-        ' const uint8_t *query, const float *qualp, const int32_t *l_ref,'
-        ' long long n, int L, int Lr, float *fm, float *fi, float *fs) {\n'
-        '  const LfqBaqConsts c = lfq_baq_consts(L);\n'
-        '  for (long long b = 0; b < n; ++b)\n'
-        '    lfq_baq_forward(refw + b * Lr, Lr, l_ref[b], query + b * L,\n'
-        '        qualp + b * L, L, c, fm + b * L * 16, fi + b * L * 16,\n'
-        '        fs + b * L, true);\n'
-        '}\n')
-    so = d / "libshim.so"
-    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-std=c++17", "-Wall", "-Werror", "-I",
-                    _kernel_build.CSRC, "-o", str(so), str(src)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.baq_grid.argtypes = ([ctypes.c_void_p] * 4
-                             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                             + [ctypes.c_void_p] * 2)
-    lib.baq_fwd_rows.argtypes = lib.baq_grid.argtypes + [ctypes.c_void_p]
-    return lib
+    """csrc/baq_hmm.cuh built by g++ into a ctypes shim
+    (lofreq_tpu_torch/testing/cuh_shims.py): K3's grid of 8 reads per
+    block, the dead reads of the last block on the last real read's
+    inputs, into [n, L, 16] scratch, then K4's one read per thread, both
+    on the register band type (-ffp-contract=off, as the kernels build
+    with -fmad=false)."""
+    return cuh_shims.build_baq_shim(str(tmp_path_factory.mktemp("baq_shim")))
 
 
 def _shim(lib, refw, query, qualp, l_ref):
-    refw, query = (np.ascontiguousarray(a, np.uint8) for a in (refw, query))
-    qualp = np.ascontiguousarray(qualp, np.float32)
-    l_ref = np.ascontiguousarray(l_ref, np.int32)
-    B, Lr = refw.shape
-    L = query.shape[1]
-    q = np.full((B, L), -1, np.int32)
-    st = np.full((B, L), -1, np.int32)
-    lib.baq_grid(refw.ctypes.data, query.ctypes.data, qualp.ctypes.data,
-                 l_ref.ctypes.data, B, L, Lr, q.ctypes.data, st.ctypes.data)
-    return q, st
+    return cuh_shims.baq_grid(lib, refw, query, qualp, l_ref)
 
 
 # (seed, B ragged against 8 reads per block, L, Lr, smallest l_ref)
@@ -333,9 +283,9 @@ def test_cuh_forward_matches_plain(cuh_shim, seed, B, L, Lr, lref_lo):
     assert not fm[:, :, 15].any() and not pm[:, :, 15].any()
 
 
-def test_cuh_body_degenerate_rows(cuh_shim):
-    """Windows shorter than the read (empty bands, all-zero rows, whose
-    MAP is window lane 0), N codes in read and window: exact agreement."""
+def _degenerate_inputs():
+    """Windows shorter than the read (empty bands, all-zero rows), N codes
+    in read and window."""
     rng = np.random.default_rng(9)
     B, L, Lr = 64, 30, 40
     refw = rng.integers(0, 5, (B, Lr)).astype(np.uint8)
@@ -343,10 +293,84 @@ def test_cuh_body_degenerate_rows(cuh_shim):
     query = rng.integers(0, 5, (B, L)).astype(np.uint8)
     qualp = (10 ** (-rng.integers(2, 41, (B, L)) / 10)).astype(np.float32)
     l_ref = rng.integers(1, Lr + 1, B).astype(np.int32)
+    return refw, query, qualp, l_ref
+
+
+def test_cuh_body_degenerate_rows(cuh_shim):
+    """Windows shorter than the read (empty bands, all-zero rows, whose
+    MAP is window lane 0), N codes in read and window: exact agreement."""
+    refw, query, qualp, l_ref = _degenerate_inputs()
+    L = query.shape[1]
     q, st = _shim(cuh_shim, refw, query, qualp, l_ref)
     q_p, st_p = _plain(refw, query, qualp, l_ref)
     assert np.array_equal(q, q_p) and np.array_equal(st, st_p)
     assert (l_ref < L - 7).any() and (st_p[l_ref < L - 7, -1] == 0).all()
+
+
+# baq_hmm.cuh as it was when K4 ran one half-warp per read, kept frozen in
+# tests/frozen_cuh/, and its g++ shim walking the same grid as BAQ_SRC:
+# the reference the generic backward pass is held to, on whatever libm
+# the host has (both shims call the same expf and logf)
+FROZEN_CUH = os.path.join(os.path.dirname(__file__), "frozen_cuh")
+HALF_WARP_SRC = r'''
+#include <vector>
+#include "baq_hmm.cuh"
+extern "C" void baq_grid(const uint8_t *refw, const uint8_t *query,
+                         const float *qualp, const int32_t *l_ref,
+                         long long n, int L, int Lr, int32_t *q,
+                         int32_t *st) {
+  const LfqBaqConsts c = lfq_baq_consts(L);
+  const long long n_pad = (n + 7) / 8 * 8;
+  std::vector<float> fm(n_pad * L * 16), fi(n_pad * L * 16), fs(n_pad * L);
+  for (int pass = 0; pass < 2; ++pass)
+    for (long long r = 0; r < n_pad; ++r) {
+      const bool live = r < n;
+      const long long b = live ? r : n - 1;
+      const long long rows = b * L;
+      if (pass == 0)
+        lfq_baq_forward(refw + b * Lr, Lr, l_ref[b], query + rows,
+            qualp + rows, L, c, &fm[rows * 16], &fi[rows * 16], &fs[rows],
+            live);
+      else
+        lfq_baq_backward(refw + b * Lr, Lr, l_ref[b], query + rows,
+            qualp + rows, L, c, &fm[rows * 16], &fi[rows * 16], &fs[rows],
+            q + rows, st + rows, live);
+    }
+}
+'''
+
+
+@pytest.fixture(scope="module")
+def half_warp_shim(tmp_path_factory):
+    lib = cuh_shims.build_shim(
+        HALF_WARP_SRC, str(tmp_path_factory.mktemp("half_warp_shim")),
+        "half_warp_shim", include=FROZEN_CUH)
+    lib.baq_grid.argtypes = ([ctypes.c_void_p] * 4
+                             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                             + [ctypes.c_void_p] * 2)
+    return lib
+
+
+HALF_WARP_CASES = SHIM_CASES + ["degenerate"]
+
+
+@pytest.mark.parametrize("case", HALF_WARP_CASES,
+                         ids=[str(c) for c in HALF_WARP_CASES])
+def test_generic_backward_equals_half_warp_body(cuh_shim, half_warp_shim,
+                                                case):
+    """The backward pass written once for both band types, on the register
+    type K4 runs, gives the q and st of the half-warp body's g++ form bit
+    for bit, on SHIM_CASES and on the degenerate rows: the order of every
+    multiply and add is kept."""
+    if case == "degenerate":
+        ins = _degenerate_inputs()
+    else:
+        seed, B, L, Lr, lref_lo = case
+        ins = _hmm_inputs(seed, B, L, Lr=Lr, lref_lo=lref_lo)
+    q, st = _shim(cuh_shim, *ins)
+    q0, st0 = _shim(half_warp_shim, *ins)
+    np.testing.assert_array_equal(q, q0)
+    np.testing.assert_array_equal(st, st0)
 
 
 def _extract(bam, fa_len, region_len):
@@ -511,6 +535,25 @@ def test_forward_kernel_matches_plain_on_gpu(seed, B, L, Lr):
     assert (fm - pm).abs().max().item() <= 1e-5
     assert (fi - pi).abs().max().item() <= 1e-5
     assert (fs / ps - 1).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,B,L,Lr", [(3, 4096, 100, 106),
+                                         (4, 1000, 75, 81),
+                                         (5, 33, 151, 170)])
+def test_kernels_match_host_body_on_gpu(cuh_shim, seed, B, L, Lr):
+    """K3 + K4 on the card against the headers' g++ form, bit for bit: K4
+    runs the same generic backward pass on the same register band type,
+    and K3's half-warp rows equal the g++ form's."""
+    _need_card()
+    refw, query, qualp, l_ref = _hmm_inputs(seed, B, L, Lr=Lr,
+                                            lref_lo=L + 4)
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        refw.astype(np.uint8), query.astype(np.uint8), qualp, l_ref)]
+    q, st = cuda_baq.baq_hmm(*ins)
+    q_h, st_h = _shim(cuh_shim, refw, query, qualp, l_ref)
+    assert np.array_equal(q.cpu().numpy(), q_h)
+    assert np.array_equal(st.cpu().numpy(), st_h)
 
 
 @pytest.mark.gpu

@@ -12,24 +12,29 @@ and csrc/fused_call.cuh) against the JAX reference, on the CPU.
    (tests/test_fused_device_call.py's tolerances), and the fused screen's
    conservativeness against the exact DP of the port's own core.poissbin.
 4. The .cuh body built with g++ into a ctypes shim against
-   fused_column_torch, at ragged shapes.
-The `gpu`-marked cases hold K2 against its plain version on the card and
-check the wrapper's input checks.
+   fused_column_torch, at ragged shapes, read by read and with the depth
+   split into T = 1, 2, 4, 8 slices merged in K2's tree, also on tails
+   near the floor and on nt4 fields past N; the table decode against
+   the expf decode it replaced (a frozen copy in tests/frozen_cuh/), bit
+   for bit.
+The `gpu`-marked cases hold K2 against its plain version on the card,
+check that two launches agree bit for bit, and check the wrapper's input
+checks.
 """
 
 import ctypes
-import subprocess
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from lofreq_tpu.ops import pallas_fused_call as ref_fc
-from lofreq_tpu_torch import _kernel_build
 from lofreq_tpu_torch.core.poissbin import snpcaller_batch
 from lofreq_tpu_torch.core.quals import merge_srcq_mapq_baq_and_bq
 from lofreq_tpu_torch.ops import fused_call as fc
 from lofreq_tpu_torch.ops.device_call import build_column_call
+from lofreq_tpu_torch.testing import cuh_shims
 from test_fused_device_call import _batch
 
 TAIL_TOL = 1e-4
@@ -62,6 +67,26 @@ def _inputs(B, Dd, seed, sq=False):
         args[4] = np.where(rng.random((B, Dd)) < 0.8,
                            rng.integers(0, 45, (B, Dd)), -1).astype(np.int16)
     return args
+
+
+def near_floor_batch(B=256, Dd=2016, seed=21):
+    """(packed [Dd, B], ref ids [B]) whose log tails sit near the floor:
+    every read of a column at one high quality (bq = BAQ = 36..53, MQ 60,
+    so p from about 5e-4 down to 1e-5) and 16..30 planted reads of one alt
+    base, so that P(X >= 16) spans about e^-40 to e^-100."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, B).astype(np.int8)
+    level = rng.integers(36, 54, B).astype(np.int16)
+    bq = np.repeat(level[:, None], Dd, axis=1)
+    mq = np.full((B, Dd), 60, np.int16)
+    sq = np.full((B, Dd), -1, np.int16)
+    nt4 = np.repeat(ref[:, None], Dd, axis=1)
+    alt = ((ref + rng.integers(1, 4, B)) % 4).astype(np.int8)
+    for c, k in enumerate(rng.integers(16, 31, B)):
+        nt4[c, rng.choice(Dd, k, replace=False)] = alt[c]
+    packed = fc.pack_columns_np(nt4, bq, bq.copy(), mq, sq,
+                                np.ones((B, Dd), bool))
+    return packed, ref.astype(np.int32)
 
 
 def _kernel_kw(conf):
@@ -243,64 +268,211 @@ def test_fused_step_checks_device(monkeypatch):
 
 @pytest.fixture(scope="module")
 def fused_shim(tmp_path_factory):
-    """fused_call.cuh built by g++ into a ctypes shim (-ffp-contract=off,
-    as the kernel builds with -fmad=false), reading [D, B] as the kernel
-    does."""
-    d = tmp_path_factory.mktemp("fused_shim")
-    src = d / "shim.cpp"
-    src.write_text(
-        '#include "fused_call.cuh"\n'
-        'extern "C" void fused_cols(const int32_t *packed_t, const int32_t '
-        '*ref, float *tail, int32_t *depth, int32_t *acnt, int32_t *araw, '
-        'long long n, long long d, int min_bq, int min_alt_bq, int use_baq, '
-        'int use_mq, int use_sq) {\n'
-        '  const LfqFusedConf k = {min_bq, min_alt_bq, use_baq, use_mq, '
-        'use_sq};\n'
-        '  for (long long i = 0; i < n; ++i)\n'
-        '    lfq_fc_column(packed_t + i, n, d, ref[i], k, tail + i, '
-        'depth + i, acnt + 4 * i, araw + 4 * i);\n'
-        '}\n')
-    so = d / "libshim.so"
-    subprocess.run(["g++", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                    "-std=c++17", "-I", _kernel_build.CSRC, "-o", str(so),
-                    str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.fused_cols.argtypes = ([ctypes.c_void_p] * 6
-                               + [ctypes.c_longlong] * 2
-                               + [ctypes.c_int] * 5)
-    return lib
+    """fused_call.cuh built by g++ into a ctypes shim
+    (lofreq_tpu_torch/testing/cuh_shims.py; -ffp-contract=off, as the
+    kernel builds with -fmad=false), reading [D, B] as the kernel does."""
+    return cuh_shims.build_fused_shim(
+        str(tmp_path_factory.mktemp("fused_shim")))
 
 
-@pytest.mark.parametrize("B,Dd,conf", [(1000, 75, "baq"),
-                                       (77, 130, "no_baq_sq"),
-                                       (300, 1, "no_mq")])
-def test_cuh_body_matches_plain(fused_shim, B, Dd, conf):
-    """The kernel's arithmetic vs fused_column_torch at ragged shapes:
-    counts and depths exact, log tails within 1e-5 absolute (expf/logf of
-    libm vs torch)."""
-    kw = _kernel_kw(CONFS[conf])
-    args = _inputs(B, Dd, seed=B, sq=kw.get("use_sq", False))
-    packed = fc.pack_columns_np(*args[:6])
-    ref4 = args[6].astype(np.int32)
-    ref4[:2] = 4   # N reference columns
-    tail = np.empty(B, np.float32)
-    depth = np.empty(B, np.int32)
-    acnt = np.empty((B, 4), np.int32)
-    araw = np.empty((B, 4), np.int32)
+def _full_conf(conf):
     full = dict(min_bq=6, min_alt_bq=6, use_baq=True, use_mq=True,
                 use_sq=False)
-    full.update(kw)
-    fused_shim.fused_cols(
-        packed.ctypes.data, ref4.ctypes.data, tail.ctypes.data,
-        depth.ctypes.data, acnt.ctypes.data, araw.ctypes.data, B, Dd,
-        full["min_bq"], full["min_alt_bq"], int(full["use_baq"]),
-        int(full["use_mq"]), int(full["use_sq"]))
+    full.update(_kernel_kw(CONFS[conf]))
+    return full
+
+
+def _shim_inputs(B, Dd, conf):
+    """test_cuh_body_matches_plain's draw: packed [Dd, B], ref ids with two
+    N reference columns."""
+    args = _inputs(B, Dd, seed=B, sq=_full_conf(conf)["use_sq"])
+    ref4 = args[6].astype(np.int32)
+    ref4[:2] = 4   # N reference columns
+    return fc.pack_columns_np(*args[:6]), ref4
+
+
+SEQ_CASES = [(1000, 75, "baq"), (77, 130, "no_baq_sq"), (300, 1, "no_mq")]
+
+
+@pytest.mark.parametrize("B,Dd,conf", SEQ_CASES)
+def test_cuh_body_matches_plain(fused_shim, B, Dd, conf):
+    """The kernel's arithmetic, read by read, vs fused_column_torch at
+    ragged shapes: counts and depths exact, log tails within 1e-5 absolute
+    (expf/logf of libm vs torch)."""
+    packed, ref4 = _shim_inputs(B, Dd, conf)
+    full = _full_conf(conf)
+    tail, depth, acnt, araw = cuh_shims.fused_columns(fused_shim, packed,
+                                                      ref4, 0, **full)
     t_p, d_p, a_p, r_p = fc.fused_column_torch(
         torch.from_numpy(packed), torch.from_numpy(ref4), **full)
     np.testing.assert_array_equal(depth, d_p.numpy())
     np.testing.assert_array_equal(acnt, a_p.numpy())
     np.testing.assert_array_equal(araw, r_p.numpy())
     assert np.abs(tail - t_p.numpy()).max() <= 1e-5
+
+
+# fused_call.cuh as it was when each read decoded its qualities with expf,
+# kept frozen in tests/frozen_cuh/, and its g++ shim, read by read: the
+# reference the table decode is held to, on whatever libm the host has
+FROZEN_CUH = os.path.join(os.path.dirname(__file__), "frozen_cuh")
+EXPF_SRC = r'''
+#include "fused_call.cuh"
+extern "C" void fused_cols(const int32_t *packed_t, const int32_t *ref,
+                           float *tail, int32_t *depth, int32_t *acnt,
+                           int32_t *araw, long long n, long long d,
+                           int min_bq, int min_alt_bq, int use_baq,
+                           int use_mq, int use_sq) {
+  const LfqFusedConf k = {min_bq, min_alt_bq, use_baq, use_mq, use_sq};
+  for (long long i = 0; i < n; ++i)
+    lfq_fc_column(packed_t + i, n, d, ref[i], k, tail + i, depth + i,
+                  acnt + 4 * i, araw + 4 * i);
+}
+'''
+EXPF_CASES = SEQ_CASES + ["near_floor"]
+
+
+@pytest.fixture(scope="module")
+def expf_shim(tmp_path_factory):
+    lib = cuh_shims.build_shim(
+        EXPF_SRC, str(tmp_path_factory.mktemp("expf_shim")), "expf_shim",
+        include=FROZEN_CUH)
+    lib.fused_cols.argtypes = ([ctypes.c_void_p] * 6
+                               + [ctypes.c_longlong] * 2
+                               + [ctypes.c_int] * 5)
+    return lib
+
+
+def _expf_columns(lib, packed, ref4, min_bq, min_alt_bq, use_baq, use_mq,
+                  use_sq):
+    Dd, B = packed.shape
+    outs = (np.empty(B, np.float32), np.empty(B, np.int32),
+            np.empty((B, 4), np.int32), np.empty((B, 4), np.int32))
+    lib.fused_cols(packed.ctypes.data, ref4.ctypes.data,
+                   *(a.ctypes.data for a in outs), B, Dd, min_bq,
+                   min_alt_bq, int(use_baq), int(use_mq), int(use_sq))
+    return outs
+
+
+@pytest.mark.parametrize("case", EXPF_CASES, ids=[str(c) for c in EXPF_CASES])
+def test_decode_table_keeps_the_sequential_body(fused_shim, expf_shim, case):
+    """The decode table holds the same expf of the same argument, so the
+    read-by-read body gives the expf decode's outputs bit for bit."""
+    if case == "near_floor":
+        packed, ref4 = near_floor_batch()
+        full = _full_conf("baq")
+    else:
+        packed, ref4 = _shim_inputs(*case)
+        full = _full_conf(case[2])
+    packed = np.ascontiguousarray(packed, np.int32)
+    ref4 = np.ascontiguousarray(ref4, np.int32)
+    got = cuh_shims.fused_columns(fused_shim, packed, ref4, 0, **full)
+    want = _expf_columns(expf_shim, packed, ref4, **full)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("T", (0,) + cuh_shims.SPLITS)
+def test_cuh_body_nt4_past_n(fused_shim, T):
+    """An nt4 field of 5..7, which the 3-bit field can hold (pack_columns_np
+    packs a negative nt4 as 7), is a base of no ACGT id: the body, read by
+    read and split, counts it under none, as fused_column_torch does."""
+    B, Dd = 512, 75
+    args = _inputs(B, Dd, seed=57)
+    rng = np.random.default_rng(57)
+    args[0] = np.where(rng.random((B, Dd)) < 0.05, -1, args[0])
+    packed = fc.pack_columns_np(*args[:6])
+    odd = rng.random(packed.shape) < 0.15
+    field = rng.integers(5, 8, packed.shape).astype(np.int32) << 28
+    packed = np.where(odd, (packed & np.int32(~(7 << 28))) | field,
+                      packed).astype(np.int32)
+    nt4 = (packed >> 28) & 7
+    assert all((nt4 == v).any() for v in (5, 6, 7))
+    ref4 = args[6].astype(np.int32)
+    got = cuh_shims.fused_columns(fused_shim, packed, ref4, T)
+    t_p, *ints = fc.fused_column_torch(torch.from_numpy(packed),
+                                       torch.from_numpy(ref4))
+    for g, w in zip(got[1:], ints):
+        np.testing.assert_array_equal(g, w.numpy())
+    above = t_p.numpy() > TAIL_FLOOR
+    assert np.abs(got[0] - t_p.numpy())[above].max() <= 1e-5
+
+
+@pytest.mark.parametrize("conf", list(CONFS) + ["mq_sq"])
+def test_decode_tables_follow_the_decode_rules(fused_shim, conf):
+    """Each field's table holds exp(q * -ln10/10) of its quality q (to f32
+    rounding), 0 for a missing or unused field, and MQ0_ERRPROB for MQ0
+    when the MQ is used."""
+    use = dict(use_baq=True, use_mq=True, use_sq=False)
+    use.update({k: v for k, v in CONFS.get(conf, {}).items() if k in use})
+    if conf == "mq_sq":
+        use.update(use_sq=True, use_baq=False)
+    tabs = cuh_shims.fused_tables(fused_shim, **use)
+    arg = np.arange(128, dtype=np.float32) * np.float32(fc.NEG_LN10_10)
+    e = np.exp(arg.astype(np.float64))
+    assert np.abs(tabs[0] / e - 1).max() <= 2 ** -23   # bq, stored as is
+    for row, key in ((1, "use_baq"), (2, "use_mq"), (3, "use_sq")):
+        if not use[key]:
+            assert not tabs[row].any()
+            continue
+        assert tabs[row][0] == 0.0   # missing
+        want = e[:-1].copy()
+        if row == 2:
+            want[0] = fc.MQ0_ERRPROB   # stored 1: MQ0
+        assert np.abs(tabs[row][1:] / want - 1).max() <= 2 ** -23
+
+
+SPLIT_DEPTHS = (1, 3, 75, 130, 2016)
+
+
+@pytest.mark.parametrize("T", cuh_shims.SPLITS)
+@pytest.mark.parametrize("Dd", SPLIT_DEPTHS)
+def test_split_depth_matches_plain(fused_shim, Dd, T):
+    """K2's split body (the depth in T slices, the partials merged in the
+    kernel's tree) vs fused_column_torch: counts and depths identical, log
+    tails within 1e-5 above the floor; D < T and D not a multiple of T
+    leave slices short or empty.  T = 1 is the read-by-read body bit for
+    bit."""
+    B = 256
+    args = _inputs(B, Dd, seed=Dd)
+    nt4, bq, valid, ref = args[0], args[1], args[5], args[6]
+    nt4[2] = (ref[2] + 1) % 4   # an all-alt column: counts past 255
+    bq[2] = 30
+    valid[2] = True
+    packed = fc.pack_columns_np(*args[:6])
+    ref4 = ref.astype(np.int32)
+    ref4[:2] = 4
+    got = cuh_shims.fused_columns(fused_shim, packed, ref4, T)
+    t_p, *ints = fc.fused_column_torch(torch.from_numpy(packed),
+                                       torch.from_numpy(ref4))
+    for g, w in zip(got[1:], ints):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert got[2][2].max() == Dd
+    above = t_p.numpy() > TAIL_FLOOR
+    assert above.sum() >= B // 2
+    assert np.abs(got[0] - t_p.numpy())[above].max() <= 1e-5
+    if T == 1:
+        seq = cuh_shims.fused_columns(fused_shim, packed, ref4, 0)
+        assert all(np.array_equal(g, w) for g, w in zip(got, seq))
+
+
+@pytest.mark.parametrize("T", cuh_shims.SPLITS)
+def test_split_depth_near_floor(fused_shim, T):
+    """Tails near the floor come from products of small partial cells:
+    on near_floor_batch the split body stays within 1e-5 of the plain
+    version above -80, and T = 1 is the read-by-read body bit for bit."""
+    packed, ref4 = near_floor_batch()
+    got = cuh_shims.fused_columns(fused_shim, packed, ref4, T)
+    t_p, *ints = fc.fused_column_torch(torch.from_numpy(packed),
+                                       torch.from_numpy(ref4))
+    for g, w in zip(got[1:], ints):
+        np.testing.assert_array_equal(g, w.numpy())
+    t_p = t_p.numpy()
+    above = t_p > TAIL_FLOOR
+    assert ((t_p > TAIL_FLOOR) & (t_p < -60)).sum() >= 40
+    assert np.abs(got[0] - t_p)[above].max() <= 1e-5
+    if T == 1:
+        seq = cuh_shims.fused_columns(fused_shim, packed, ref4, 0)
+        assert all(np.array_equal(g, w) for g, w in zip(got, seq))
 
 
 def _need_card():
@@ -331,6 +503,21 @@ def test_kernel_matches_plain_on_gpu(B, Dd, conf):
     assert np.isfinite(t).all()
     above = tw > np.log(np.float32(fc.TAIL_FLOOR))
     assert np.abs(t - tw)[above].max(initial=0.0) <= TAIL_TOL
+
+
+@pytest.mark.gpu
+def test_kernel_repeats_bit_for_bit_on_gpu():
+    """Two launches on the same inputs agree bit for bit: the partials
+    merge in a fixed tree, with no atomics."""
+    _need_card()
+    packed, ref4 = near_floor_batch(B=4099)
+    packed, ref4 = (torch.from_numpy(a).cuda() for a in (packed, ref4))
+    a = fc.fused_columns(packed, ref4)
+    b = fc.fused_columns(packed, ref4)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    t_p = fc.fused_column_torch(packed, ref4)[0]
+    above = t_p > TAIL_FLOOR
+    assert (a[0] - t_p)[above].abs().max().item() <= TAIL_TOL
 
 
 @pytest.mark.gpu

@@ -109,3 +109,56 @@ def test_wrong_k1_f32_fails_on_spread_batch(spread, kind):
     with cs.step_dp(dc, cp.tail_torch):
         right = step(*unf)
     assert cs.check_step(dc, right, plain, unf[-1], "spread") == 0.0
+
+
+def test_spill_bytes_reads_ptxas_lines():
+    """The build check that K2 and K4 do not spill reads ptxas -v."""
+    log = ("ptxas info    : Function properties for _ZN12_GLOBAL__N_114"
+           "baq_bwd_kernelEPKh\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 188 registers, used 1 barriers\n")
+    use = cs.register_use(log)
+    assert cs.spill_bytes(use["baq_bwd_kernel"]) == 20
+    assert cs.spill_bytes("0 bytes stack frame, 0 bytes spill stores, "
+                          "0 bytes spill loads, Used 80 registers") == 0
+
+
+def test_fused_repeats_fails_a_kernel_that_does_not_repeat(spread,
+                                                            monkeypatch):
+    """K2 launched twice must agree bit for bit: a kernel whose second
+    launch moves one tail by one ulp fails the check."""
+    _, packed, ref4, _ = spread
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = [0]
+
+    def drifting(p, r):
+        calls[0] += 1
+        tail, depth, acnt, araw = fc.fused_column_torch(p, r)
+        if calls[0] % 2 == 0:
+            tail = tail.clone()
+            tail[0] = torch.nextafter(tail[0], torch.tensor(0.0))
+        return tail, depth, acnt, araw
+
+    with pytest.raises(SystemExit):
+        cs.fused_repeats(_as_fc(drifting), packed, ref4, "spread")
+    cs.fused_repeats(_as_fc(fc.fused_column_torch), packed, ref4, "spread")
+
+
+@pytest.mark.parametrize("seen,reps,ok", [
+    (500, 500, True),    # every launch seen
+    (296, 300, True),    # the profiler dropped a few records
+    (444, 500, True),    # ... or more of them
+    (249, 500, False),   # most records missing: no time per launch
+    (301, 300, False),   # other launches mixed in
+])
+def test_per_launch_ms_takes_a_window_missing_launches(seen, reps, ok):
+    """The profiler drops records of a timing window; per_launch_ms
+    averages over the launches it saw while at least half were seen, and
+    fails a window with too few or too many."""
+    dev = {"k_kernel(int)": (seen, 17.5 * seen), "other": (1, 3.0)}
+    if ok:
+        assert cs.per_launch_ms(dev, "k_kernel", reps) == pytest.approx(0.0175)
+    else:
+        with pytest.raises(SystemExit):
+            cs.per_launch_ms(dev, "k_kernel", reps)
