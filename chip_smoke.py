@@ -7,9 +7,12 @@ Phases, one line each; any failure exits non-zero before the result:
 1. the card: torch.cuda must be available; its name and power limit;
 2. build: the CUDA kernels are compiled from lofreq_tpu_torch/csrc with
    nvcc (sm_90a) into lofreq_tpu_torch/csrc/build/; each kernel's
-   registers and spills, and no spill in K2 and K4;
+   registers and spills, and no spill in K1's two kernels, K2 and K4;
 3. kernel vs plain: the screen kernel (K1) against its plain PyTorch
-   version on the card, at [4096, 128] and at a ragged [292, 128];
+   version on the card, at [4096, 128], at a ragged [292, 128] and at
+   [48, 16], and against its split body (T = 8) built by g++ on this host
+   (lofreq_tpu_torch/testing/cuh_shims.py), launched twice: the two
+   launches identical bit for bit;
 4. main path: the port's `call` (run_call, device screen on the card) on
    the bench workload (simulated 200 kb at 800x, seed 3).  The first run
    is the counted one: it must launch the kernel.  Every run must give
@@ -48,12 +51,16 @@ Phases, one line each; any failure exits non-zero before the result:
    [-80, -1] with candidates on both sides of the threshold (spread_batch,
    its reach checked), and on a ragged 1,000 x 75 one: K2 against its
    plain version, each step against its plain version (the DP's plain
-   version in place of K1), and the fused step against the unfused one;
-   on the spread batch K2 is launched twice and must repeat bit for bit;
+   version in place of K1), the fused step against the unfused one, and
+   K1's f32 entry, on the DP inputs the unfused step gives it, against its
+   body built by g++ (lfq_tail_column), within 2 f32 ulps per tail; the
+   unfused step must make no layout copy of its DP input; on the spread
+   batch K2 is launched twice and must repeat bit for bit;
 11. timings at the deployment shape: K2's and K1's f32 entry's device
-   time per launch (profiler), the copy of the DP input into K1's [D, B]
-   layout that the unfused step makes (CUDA events), both steps'
-   columns/s (CUDA events) and the plain versions' time per call.
+   time per launch (profiler), K1's on the step's own [B, D] probs, both
+   steps' columns/s (CUDA events) and the plain versions' time per call;
+   and, for the record, a copy of the DP input into [D, B] (CUDA events),
+   which the f32 entry's first design made on every call.
 Then a JSON line of the kernels (each with its bound: the bytes it must
 move over the card's memory rate or its f32 operations over the card's
 f32 rate, whichever is longer), the card line, and as the last line
@@ -79,6 +86,16 @@ from torch.autograd import DeviceType
 REPO = os.path.dirname(os.path.abspath(__file__))
 GENOME, DEPTH, SEED = 200_000, 800, 3   # bench.py's workload
 TAIL_TOL = 1e-4   # |log tail| abs; f32 DP: exp2f/logf ulps + FMA vs mul-add
+# K1 against its g++ bodies: the split screen at T = 8 takes the same
+# slices, steps and merge tree, and differs by CUDA's exp2f and logf
+# against libm's; the f32 entry runs lfq_tail_column's operations in its
+# order, so its linear tails are the same bits and only logf differs
+SCREEN_HOST_TOL = 1e-5
+TAIL_ULPS = 2
+SCREEN_SPLIT = 8
+# kernels the build fails on a spill of
+NO_SPILL = ("screen_codes_kernel", "tail_probs_kernel", "baq_bwd_kernel",
+            "fused_call_kernel")
 WALL_PAIRS = 8
 BAQ_PAIRS = 4
 KERNEL_REPS = 500          # launches per profiled / timed kernel window
@@ -159,6 +176,23 @@ def spill_bytes(use: str) -> int:
     return sum(int(n) for n in found)
 
 
+def check_no_spill(use: dict) -> None:
+    """Every NO_SPILL kernel is in the build log and spills nothing."""
+    for name in NO_SPILL:
+        check(name in use and spill_bytes(use[name]) == 0,
+              f"{name} spills or is missing from the build log: "
+              f"{use.get(name)}")
+
+
+def ulps(a, b) -> np.ndarray:
+    """|a - b| in f32 ulps: the distance between the ordered bit patterns
+    of two float32 arrays."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(a) - ordered(b))
+
+
 def events_ms(fn, reps: int) -> float:
     """Elapsed card time per fn() over reps back-to-back calls (CUDA
     events); for a short kernel this is the host's issue rate."""
@@ -237,17 +271,51 @@ def dp_ops(reads: torch.Tensor, kc: torch.Tensor) -> float:
     return float((reads.double() * (3 * kc.double() + 3)).sum())
 
 
-def screen_inputs(rng, B: int):
-    """Seeded codes [B, 128] (30% padding), ks 1..24, log_thresh."""
-    codes = rng.integers(16, 160, (B, 128)).astype(np.uint8)
-    codes[rng.random((B, 128)) < 0.3] = 255
+def screen_inputs(rng, B: int, S: int = 128):
+    """Seeded codes [B, S] (30% padding), ks 1..24, log_thresh."""
+    codes = rng.integers(16, 160, (B, S)).astype(np.uint8)
+    codes[rng.random((B, S)) < 0.3] = 255
     ks = rng.integers(1, 25, B).astype(np.int32)
     lt = rng.uniform(-40.0, -1.0, B).astype(np.float32)
     return [torch.from_numpy(a).cuda() for a in (codes, ks, lt)]
 
 
-def kernel_vs_plain(cp, rng, B: int) -> float:
-    codes, ks, lt = screen_inputs(rng, B)
+def screen_vs_host(cp, host, codes, ks, lt, what: str) -> float:
+    """screen_codes launched twice, the launches identical bit for bit,
+    against the split column at T = SCREEN_SPLIT built by g++ (`host`, the
+    shim of cuh_shims.build_screen_shim): log tails within
+    SCREEN_HOST_TOL, masks equal except within it of the threshold.
+    Returns the max |tail difference|."""
+    from lofreq_tpu_torch.testing import cuh_shims
+
+    t1, m1 = cp.screen_codes(codes, ks, lt)
+    t2, m2 = cp.screen_codes(codes, ks, lt)
+    torch.cuda.synchronize()
+    check(torch.equal(t1, t2) and torch.equal(m1, m2),
+          f"{what}: two screen_codes launches differ")
+    c, k, lt_h = (x.cpu().numpy() for x in (codes, ks, lt))
+    want, want_mask = cuh_shims.screen_columns(host, c, k, lt_h,
+                                               SCREEN_SPLIT)
+    tail = t1.cpu().numpy()
+    check(tail.shape == want.shape and np.isfinite(tail).all(),
+          f"{what}: tail shape {tail.shape} or non-finite")
+    err = float(np.abs(tail - want).max(initial=0.0))
+    check(err <= SCREEN_HOST_TOL, f"{what}: |tail - g++ split body| {err} "
+          f"> {SCREEN_HOST_TOL}")
+    near = np.abs(want - lt_h) <= SCREEN_HOST_TOL
+    diff = m1.cpu().numpy() != want_mask
+    check(not (diff & ~near).any(), f"{what}: {int((diff & ~near).sum())} "
+          "masks differ from the g++ split body off the threshold")
+    say("kernel", f"{what}: two launches identical; max |dtail| {err:.3g} "
+        f"against the g++ split body (T = {SCREEN_SPLIT})")
+    return err
+
+
+def kernel_vs_plain(cp, rng, B: int, S: int, host) -> float:
+    """K1 against its g++ split body (screen_vs_host) and its plain
+    version at [B, S].  Returns the max |tail - plain|."""
+    codes, ks, lt = screen_inputs(rng, B, S)
+    screen_vs_host(cp, host, codes, ks, lt, f"B={B} S={S}")
     tail_k, mask_k = cp.screen_codes(codes, ks, lt)
     tail_p, mask_p = cp.screen_codes_torch(codes, ks, lt)
     torch.cuda.synchronize()
@@ -263,7 +331,7 @@ def kernel_vs_plain(cp, rng, B: int) -> float:
     check(not (diff & ~near).any(),
           f"B={B}: {int((diff & ~near).sum())} masks differ off the "
           "threshold")
-    say("kernel", f"B={B}: max |dtail| {err:.3g} over {int(above.sum())} "
+    say("kernel", f"B={B} S={S}: max |dtail| {err:.3g} over {int(above.sum())} "
         f"rows above the floor; {int(near.sum())} rows within {TAIL_TOL} "
         f"of the threshold ({int(diff.sum())} of them differ); "
         f"{int(mask_k.sum())} candidates")
@@ -556,6 +624,42 @@ def check_step(dc, got, want, bonf, what: str,
     return err
 
 
+def k1_f32_vs_host(cp, dc, step, unf_args, host, what: str) -> int:
+    """K1's f32 entry on the DP inputs the unfused step gives it, against
+    lfq_tail_column built by g++ (`host`, the shim of
+    cuh_shims.build_screen_shim): within TAIL_ULPS f32 ulps on every tail,
+    and no layout copy of the step's probs.  Returns the max ulps."""
+    from lofreq_tpu_torch.testing import cuh_shims
+
+    seen = {}
+
+    def capture(p, kc):
+        out = cp.tail_probs(p, kc)
+        seen.update(p=p, kc=kc, out=out)
+        return out
+
+    copies = cp.layout_copy_count()
+    with step_dp(dc, capture):
+        step(*unf_args)
+    torch.cuda.synchronize()
+    check(cp.layout_copy_count() == copies,
+          f"{what}: tail_probs copied the step's probs into another layout")
+    got = seen["out"].cpu().numpy()
+    want = cuh_shims.tail_columns(host, seen["p"].cpu().numpy(),
+                                  seen["kc"].cpu().numpy(),
+                                  workers=os.cpu_count() or 1)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: K1-f32 tail shape {got.shape} or non-finite")
+    d = ulps(got, want)
+    worst = int(d.max(initial=0))
+    check(worst <= TAIL_ULPS, f"{what}: K1-f32 {worst} f32 ulps from "
+          f"lfq_tail_column (g++) on {int((d > TAIL_ULPS).sum())} tails")
+    say("step", f"{what}: K1-f32 within {worst} f32 ulps of lfq_tail_column "
+        f"(g++) on all {got.size} tails ({int((d == 0).sum())} identical); "
+        "no layout copy")
+    return worst
+
+
 def fused_vs_plain(fc, packed, ref4, what: str) -> float:
     """K2 against fused_column_torch on the card: depths and counts
     identical, log tails within TAIL_TOL where the plain tail is above
@@ -604,26 +708,28 @@ def time_column_step(cp, dc, fc, step, fused, unf_args, fus_args) -> dict:
 
     with step_dp(dc, capture):   # the DP's inputs, as the step gives them
         step(*unf_args)
-    probs, kc = seen["p"], seen["kc"]
-    probs_t = probs.t().contiguous()   # the [D, B] layout the kernel reads
+    probs, kc = seen["p"], seen["kc"]   # [B, D], as the step gives them
     packed, ref4, _ = fus_args
     kept = int(fused(*fus_args)["depths"].sum())
 
     def k1_loop():
         for _ in range(STEP_REPS):
-            cp.tail_probs(probs_t.t(), kc)
+            cp.tail_probs(probs, kc)
 
     def k2_loop():
         for _ in range(STEP_REPS):
             fc.fused_columns(packed, ref4)
 
     ms, lim, plain, n_seen = {}, {}, {}, {}
+    copies = cp.layout_copy_count()
     for key, loop, name in (("tail_probs", k1_loop, "tail_probs_kernel"),
                             ("fused", k2_loop, "fused_call_kernel")):
         loop()
         _, _, dev = device_profile(loop)
         ms[key] = per_launch_ms(dev, name, STEP_REPS)
         n_seen[key] = kernel_us(dev, name)[0]
+    check(cp.layout_copy_count() == copies,
+          "K1-f32's timing window copied the step's probs")
     plain["tail_probs"] = statistics.median(
         events_ms(lambda: cp.tail_torch(probs, kc), 1)
         for _ in range(STEP_PLAIN_WINDOWS))
@@ -639,8 +745,8 @@ def time_column_step(cp, dc, fc, step, fused, unf_args, fus_args) -> dict:
                          kept * (K2_OPS_PER_KEPT + 2 * 3) + B * 18)
     step_ms = {"unfused": events_ms(lambda: step(*unf_args), STEP_ITERS),
                "fused": events_ms(lambda: fused(*fus_args), STEP_ITERS)}
-    # tail_probs copies the step's [B, D] probs into [D, B] before K1 on
-    # every call of the unfused step (K1's time above leaves it out)
+    # for the record: the copy of the step's [B, D] probs into [D, B] that
+    # the f32 entry's first design made before every launch
     copy_ms = events_ms(lambda: probs.t().contiguous(), STEP_ITERS)
     # a window of calls: the profiler drops a launch now and then, and
     # missed the fused step's one K2 launch in a one-call profile
@@ -656,9 +762,9 @@ def time_column_step(cp, dc, fc, step, fused, unf_args, fus_args) -> dict:
             f"launches seen); bound {lim[key][0]:.6f} ms by {lim[key][1]}; "
             f"plain torch {plain[key]:.6f} ms per call (CUDA events, "
             f"median of {STEP_PLAIN_WINDOWS} calls)")
-    say("timing", f"column step [{B}, {Dd}]: tail_probs' [B, D] -> [D, B] "
-        f"copy of the DP input {copy_ms:.6f} ms per call (CUDA events, "
-        f"{STEP_ITERS} copies)")
+    say("timing", f"column step [{B}, {Dd}]: a [B, D] -> [D, B] copy of the "
+        f"DP input, which tail_probs no longer makes, {copy_ms:.6f} ms per "
+        f"call (CUDA events, {STEP_ITERS} copies)")
     say("timing", f"column step [{B}, {Dd}]: whole step per call (CUDA "
         f"events, {STEP_ITERS} calls): unfused {step_ms['unfused']:.6f} ms "
         f"= {B / step_ms['unfused'] * 1e3:.1f} columns/s, fused "
@@ -700,15 +806,16 @@ def main() -> int:
     say("build", f"{build_s:.3f} s -> "
         f"{os.path.relpath(_kernel_build.library_path(), REPO)}; "
         + "; ".join(f"{k}: {v}" for k, v in use.items()))
-    for name in ("baq_bwd_kernel", "fused_call_kernel"):
-        check(name in use and spill_bytes(use[name]) == 0,
-              f"{name} spills or is missing from the build log: "
-              f"{use.get(name)}")
+    check_no_spill(use)
 
     from lofreq_tpu_torch.testing import cuh_shims
 
+    # the g++ forms of K1's bodies, for phases 3 and 10
+    shim_dir = tempfile.TemporaryDirectory()
+    host_k1 = cuh_shims.build_screen_shim(shim_dir.name)
     rng = np.random.default_rng(SEED)
-    max_err = max(kernel_vs_plain(cp, rng, B) for B in (4096, 292))
+    max_err = max(kernel_vs_plain(cp, rng, B, S, host_k1)
+                  for B, S in ((4096, 128), (292, 128), (48, 16)))
     with tempfile.TemporaryDirectory() as td:
         host_baq = cuh_shims.build_baq_shim(td)
         baq_errs = [baq_vs_plain(ca, bt, rng, *shape, host=host_baq)
@@ -893,12 +1000,16 @@ def main() -> int:
                             "baq_fwd": 0, "baq_bwd": 0},
           f"the column step's launches {step_launches}, want 2 of K1's f32 "
           "entry and 1 of K2")
+    check(cp.layout_copy_count() == 0,
+          f"the unfused step made {cp.layout_copy_count()} layout copies of "
+          "its DP input")
     check(int(ex_out["num_tested"]) > 0 and int(unf_out["num_tested"]) > 0,
           "the column step tested no column")
     say("step", f"counted run: {step_wall:.4f} s for entry()'s batch "
         f"{list(ex_args[0].shape)} and both steps at {list(deploy)}; "
-        f"launches {step_launches}; tested {int(ex_out['num_tested'])} and "
-        f"{int(unf_out['num_tested'])} columns")
+        f"launches {step_launches}, no layout copy; tested "
+        f"{int(ex_out['num_tested'])} and {int(unf_out['num_tested'])} "
+        "columns")
     with step_dp(dc, cp.tail_torch):
         ex_plain = step(*ex_args)
     step_errs = [check_step(dc, ex_out, ex_plain, ex_args[-1],
@@ -915,6 +1026,7 @@ def main() -> int:
             check_spread(dc, plain, unf_args[-1], what)
         step_errs.append(check_step(dc, unf, plain, unf_args[-1],
                                     f"unfused step {what} vs plain"))
+        k1_f32_vs_host(cp, dc, step, unf_args, host_k1, what)
         fused_errs.append(fused_vs_plain(fc, *fus_args[:2], what))
         if name == "spread":
             fused_repeats(fc, *fus_args[:2], what)
@@ -922,6 +1034,7 @@ def main() -> int:
                    fused_vs_unfused=True)
         del unf, fus, plain
     col = time_column_step(cp, dc, fc, step, fused, *batches["deployment"])
+    shim_dir.cleanup()
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "lofreq_tpu"))

@@ -127,8 +127,8 @@ def get_kernel_lib() -> ctypes.CDLL:
             lib.lfq_baq_bwd_launch.argtypes = [vp] * 9 + [i64, i32, i32,
                                                           i32, vp]
             lib.lfq_baq_bwd_launch.restype = ctypes.c_int
-            lib.lfq_tail_probs_launch.argtypes = [vp, vp, vp, i64, i64,
-                                                  i32, vp]
+            lib.lfq_tail_probs_launch.argtypes = [vp, i64, vp, vp, i64,
+                                                  i64, i32, vp]
             lib.lfq_tail_probs_launch.restype = ctypes.c_int
             lib.lfq_fused_call_launch.argtypes = [vp] * 6 + [i64, i64] + \
                 [i32] * 5 + [i32, vp]

@@ -17,7 +17,8 @@ from one to the other.
   column step's DP (ops/device_call.py).  `poissbin_tail` is the
   counterpart of pallas_poissbin.poissbin_tail_pallas on top of it.
 
-Each entry counts its own launches (launch_count).
+Each entry counts its own launches (launch_count); `tail_probs` also
+counts the layout copies it makes (layout_copy_count).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ S_ALIGN = 16     # the kernel reads each row as 16-byte vectors
 
 _count_lock = threading.Lock()
 _launches = {"screen_codes": 0, "tail_probs": 0}
+_layout_copies = [0]
 
 
 def launch_count(entry: str = "screen_codes") -> int:
@@ -43,10 +45,19 @@ def launch_count(entry: str = "screen_codes") -> int:
         return _launches[entry]
 
 
+def layout_copy_count() -> int:
+    """Copies of probs into a layout tail_probs' kernel reads, since the
+    last reset."""
+    with _count_lock:
+        return _layout_copies[0]
+
+
 def reset_launch_count() -> None:
+    """Zero the launch counts and the layout copy count."""
     with _count_lock:
         for k in _launches:
             _launches[k] = 0
+        _layout_copies[0] = 0
 
 
 def _count(entry: str) -> None:
@@ -160,6 +171,20 @@ def _check_tail_args(probs, kc) -> None:
         raise ValueError("kc must be contiguous")
 
 
+def row_stride(probs: torch.Tensor):
+    """The row stride (elements) with which tail_probs' kernel reads
+    probs [B, D] as it lies, or None when it must be copied: the kernel
+    reads row i at i * stride, D consecutive elements, so it takes unit
+    stride along D and a row stride of at least D (a size-1 dimension's
+    stride does not matter)."""
+    B, D = probs.shape
+    if D > 1 and probs.stride(1) != 1:
+        return None
+    if B == 1:
+        return D
+    return probs.stride(0) if probs.stride(0) >= D else None
+
+
 def tail_probs(probs: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
     """log(max(P(X >= kc), 1e-37)) [B] f32 of probs [B, D] f32 in any
     order, any D >= 1 (p > 1.5 is pad and acts as the identity; other
@@ -167,9 +192,11 @@ def tail_probs(probs: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
 
     CPU tensors run the plain version (tail_torch).  CUDA tensors launch
     the kernel on the current stream (asynchronously) or raise.  The
-    kernel reads the probs as [D, B], so that neighbouring threads
-    (columns) read neighbouring words: a transposed view of a contiguous
-    [D, B] tensor goes in as it is, any other layout is copied into one."""
+    kernel reads probs as [B, D] rows with unit stride along D and any row
+    stride of at least D (row_stride): the column step's contiguous probs,
+    or a row-sliced view of them, go in as they are; any other layout is
+    copied into a contiguous one, and the copy is counted
+    (layout_copy_count)."""
     if probs.device.type == "cpu":
         return tail_torch(probs, kc)
     if probs.device.type != "cuda":
@@ -179,12 +206,17 @@ def tail_probs(probs: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
 
     lib = get_kernel_lib()
     B, D = probs.shape
-    probs_t = probs.t().contiguous()
     out = torch.empty(B, dtype=torch.float32, device=probs.device)
     if B == 0:
         return out
+    ld = row_stride(probs)
+    if ld is None:
+        probs = probs.contiguous()
+        ld = D
+        with _count_lock:
+            _layout_copies[0] += 1
     err = lib.lfq_tail_probs_launch(
-        probs_t.data_ptr(), kc.data_ptr(), out.data_ptr(), B, D,
+        probs.data_ptr(), ld, kc.data_ptr(), out.data_ptr(), B, D,
         probs.device.index,
         torch.cuda.current_stream(probs.device).cuda_stream)
     if err:

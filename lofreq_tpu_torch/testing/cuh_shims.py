@@ -1,11 +1,15 @@
-"""The kernels' bodies built for the host: csrc/baq_hmm.cuh (K3/K4) and
-csrc/fused_call.cuh (K2) compiled by g++ into ctypes shims.
+"""The kernels' bodies built for the host: csrc/poissbin_screen.cuh (K1),
+csrc/baq_hmm.cuh (K3/K4) and csrc/fused_call.cuh (K2) compiled by g++
+into ctypes shims.
 
 The CPU tests hold these shims against the plain PyTorch versions, and
-chip_smoke.py holds the kernels on the card against them bit for bit.
-g++ builds with -ffp-contract=off, as the kernels build with -fmad=false,
-so both round every multiply and add on its own.
+chip_smoke.py holds the kernels on the card against them.  g++ builds
+with -ffp-contract=off, as the kernels build with -fmad=false, so both
+round every multiply and add on its own.
 
+    lib = build_screen_shim(workdir)
+    tail, mask = screen_columns(lib, codes, ks, log_thresh, T=8)
+    tail = tail_columns(lib, probs, kc)
     lib = build_baq_shim(workdir)
     q, st = baq_grid(lib, refw, query, qualp, l_ref)
     lib = build_fused_shim(workdir)
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -24,6 +29,29 @@ from .._kernel_build import CSRC
 
 GXX_FLAGS = ["-O2", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17",
              "-Wall", "-Werror"]
+
+# screen_cols: T = 0 runs the serial column (lfq_screen_column), T = 1, 2,
+# 4, 8 the split column and its merge tree (lfq_screen_column_split).
+# tail_cols reads [n, d] rows `ld` floats apart, as tail_probs_kernel does.
+SCREEN_SRC = r'''
+#include "poissbin_screen.cuh"
+extern "C" void screen_cols(const uint8_t *codes, const int32_t *ks,
+                            const float *lt, float *tail, uint8_t *mask,
+                            long long n, int s, int T) {
+  for (long long i = 0; i < n; ++i)
+    mask[i] = T == 0
+        ? lfq_screen_column(codes + i * s, s, ks[i], lt[i], tail + i)
+        : lfq_screen_column_split(codes + i * s, s, ks[i], lt[i], T,
+                                  tail + i);
+}
+extern "C" void tail_cols(const float *probs, long long ld,
+                          const int32_t *kc, float *tail, long long n,
+                          long long d) {
+  for (long long i = 0; i < n; ++i)
+    tail[i] = lfq_tail_column(probs + i * ld, 1, d, kc[i]);
+}
+extern "C" void decode_table(float *out) { lfq_fill_decode_table(out, 0, 1); }
+'''
 
 # baq_grid walks K3's grid (8 reads per block, the dead reads of the last
 # block on the last real read's inputs, writing nothing) into [n, L, 16]
@@ -117,6 +145,65 @@ def build_shim(src: str, workdir: str, name: str,
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}:\n{proc.stderr}")
     return ctypes.CDLL(so)
+
+
+SCREEN_SPLITS = (1, 2, 4, 8)   # T of lfq_screen_column_split
+
+
+def build_screen_shim(workdir: str) -> ctypes.CDLL:
+    lib = build_shim(SCREEN_SRC, workdir, "screen_shim")
+    lib.screen_cols.argtypes = ([ctypes.c_void_p] * 5
+                                + [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int])
+    lib.tail_cols.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
+                              + [ctypes.c_void_p] * 2
+                              + [ctypes.c_longlong] * 2)
+    lib.decode_table.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def screen_columns(lib, codes, ks, log_thresh, T: int = 8):
+    """(log tail [B] f32, candidate mask [B] bool) of the host-built K1
+    body over u8 codes [B, S]: T = 0 the serial column, else the row split
+    into T slices and merged (T = 8 is screen_codes_kernel's split)."""
+    if T not in (0,) + SCREEN_SPLITS:
+        raise ValueError(f"T must be 0 or one of {SCREEN_SPLITS}, got {T}")
+    codes = np.ascontiguousarray(codes, np.uint8)
+    ks = np.ascontiguousarray(ks, np.int32)
+    lt = np.ascontiguousarray(log_thresh, np.float32)
+    B, S = codes.shape
+    tail = np.empty(B, np.float32)
+    mask = np.empty(B, np.uint8)
+    lib.screen_cols(codes.ctypes.data, ks.ctypes.data, lt.ctypes.data,
+                    tail.ctypes.data, mask.ctypes.data, B, S, int(T))
+    return tail, mask.astype(bool)
+
+
+def tail_columns(lib, probs, kc, workers: int = 1):
+    """log tail [B] f32 of the host-built K1 f32 body (lfq_tail_column)
+    over probs [B, D] f32 read by rows, kc [B] int32; `workers` threads
+    take row blocks (a ctypes call releases the GIL)."""
+    probs = np.ascontiguousarray(probs, np.float32)
+    kc = np.ascontiguousarray(kc, np.int32)
+    B, D = probs.shape
+    tail = np.empty(B, np.float32)
+    step = max(1, -(-B // max(1, workers)))
+
+    def run(lo):
+        hi = min(B, lo + step)
+        lib.tail_cols(probs[lo:hi].ctypes.data, D, kc[lo:hi].ctypes.data,
+                      tail[lo:hi].ctypes.data, hi - lo, D)
+
+    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
+        list(pool.map(run, range(0, B, step)))
+    return tail
+
+
+def decode_table(lib):
+    """The decode table [256] f32 that screen_codes_kernel fills."""
+    out = np.empty(256, np.float32)
+    lib.decode_table(out.ctypes.data)
+    return out
 
 
 def build_baq_shim(workdir: str) -> ctypes.CDLL:

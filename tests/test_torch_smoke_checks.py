@@ -1,5 +1,4 @@
-"""chip_smoke.py's column-step checks catch wrong kernels on its spread
-batch, on the CPU.
+"""chip_smoke.py's checks catch wrong kernels, on the CPU.
 
 On the card chip_smoke holds K2 (fused_columns) and K1's f32 entry
 (tail_probs) against their plain versions at the deployment shape.  Its
@@ -9,6 +8,15 @@ within 1e-4 of the right one; spread_batch spreads the tails over
 the plain versions (a tail of 0, a tail at kc + 1, probs or tails
 rounded through bf16), and chip_smoke's own check functions must fail
 each of them on spread_batch's draws, at 256 columns of full depth.
+
+chip_smoke also holds K1's two kernels to their bodies built by g++
+(lofreq_tpu_torch/testing/cuh_shims.py): the f32 entry within 2 f32
+ulps of lfq_tail_column with no layout copy, and the screen within 1e-5
+of the split column at T = 8, two launches identical.  Here those checks
+must fail kernels off by 3 ulps, rounded through bf16, at kc + 1, that
+copy, that move tails by 2e-5, flip a mask or drift between launches, and
+pass the g++ forms themselves.  The build check must fail a spill in
+either K1 kernel.
 """
 
 import types
@@ -22,6 +30,7 @@ from lofreq_tpu_torch.entry import entry
 from lofreq_tpu_torch.ops import cuda_poissbin as cp
 from lofreq_tpu_torch.ops import device_call as dc
 from lofreq_tpu_torch.ops import fused_call as fc
+from lofreq_tpu_torch.testing import cuh_shims
 
 B, DEPTH = 256, 2016
 
@@ -109,6 +118,146 @@ def test_wrong_k1_f32_fails_on_spread_batch(spread, kind):
     with cs.step_dp(dc, cp.tail_torch):
         right = step(*unf)
     assert cs.check_step(dc, right, plain, unf[-1], "spread") == 0.0
+
+
+@pytest.fixture(scope="module")
+def k1_host(tmp_path_factory):
+    return cuh_shims.build_screen_shim(str(tmp_path_factory.mktemp("k1")))
+
+
+def _host_tail(host, kc_shift=0):
+    def run(p, kc):
+        kc = (kc + kc_shift).clamp(1, cp.KMAX).to(torch.int32)
+        return torch.from_numpy(cuh_shims.tail_columns(host, p.numpy(),
+                                                       kc.numpy()))
+    return run
+
+
+def _as_cp_tail(run, copies=0):
+    """A stand-in for ops.cuda_poissbin whose K1 f32 entry is `run`,
+    making `copies` layout copies a call."""
+    made = [0]
+
+    def tail_probs(p, kc):
+        made[0] += copies
+        return run(p, kc)
+
+    return types.SimpleNamespace(tail_probs=tail_probs,
+                                 layout_copy_count=lambda: made[0])
+
+
+def _wrong_k1_host(host, kind):
+    right = _host_tail(host)
+    if kind == "kc+1":
+        return _as_cp_tail(_host_tail(host, 1))
+    if kind == "copy":
+        return _as_cp_tail(right, copies=1)
+
+    def run(p, kc):
+        t = right(p, kc)
+        if kind == "3ulp":
+            for _ in range(3):
+                t = torch.nextafter(t, torch.tensor(-np.inf))
+            return t
+        return t.to(torch.bfloat16).to(torch.float32)
+    return _as_cp_tail(run)
+
+
+@pytest.mark.parametrize("kind", ["3ulp", "bf16", "kc+1", "copy"])
+def test_wrong_k1_f32_fails_the_host_check(spread, k1_host, monkeypatch,
+                                           kind):
+    unf = spread[0]
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    step, _ = entry(device="cpu")
+    with pytest.raises(SystemExit):
+        cs.k1_f32_vs_host(_wrong_k1_host(k1_host, kind), dc, step, unf,
+                          k1_host, "spread")
+    # the g++ form itself passes, and so does one 2 ulps off
+    right = _as_cp_tail(_host_tail(k1_host))
+    assert cs.k1_f32_vs_host(right, dc, step, unf, k1_host, "spread") == 0
+
+    def two_ulps(p, kc):
+        t = _host_tail(k1_host)(p, kc)
+        return torch.nextafter(torch.nextafter(t, torch.tensor(0.0)),
+                               torch.tensor(0.0))
+    got = cs.k1_f32_vs_host(_as_cp_tail(two_ulps), dc, step, unf, k1_host,
+                            "spread")
+    assert got == 2
+
+
+def test_ulps_counts_float_steps():
+    x = np.array([-1.0, -1e-8, 0.0, 1e-30, -85.0], np.float32)
+    assert (cs.ulps(x, x) == 0).all()
+    y = np.nextafter(np.nextafter(x, np.float32(-np.inf)),
+                     np.float32(-np.inf))
+    assert (cs.ulps(x, y) == 2).all()
+    assert cs.ulps(np.float32(0.0), np.float32(-0.0)) == 0
+
+
+def _screen_draws(seed=9, B=512, S=128):
+    """Seeded codes [B, S] (30% pad), ks 1..24 and thresholds near the
+    tails' range, so that masks fall on both sides."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(16, 160, (B, S)).astype(np.uint8)
+    codes[rng.random((B, S)) < 0.3] = cp.CODE_PAD
+    ks = rng.integers(1, 25, B).astype(np.int32)
+    lt = rng.uniform(-12.0, -1.0, B).astype(np.float32)
+    return [torch.from_numpy(a) for a in (codes, ks, lt)]
+
+
+def _host_screen(host, kind="right"):
+    calls = [0]
+
+    def screen_codes(codes, ks, lt):
+        calls[0] += 1
+        k = ks + 1 if kind == "kc+1" else ks
+        t, m = cuh_shims.screen_columns(host, codes.numpy(), k.numpy(),
+                                        lt.numpy(), 8)
+        t, m = torch.from_numpy(t), torch.from_numpy(m)
+        if kind == "shift":
+            t = t + 2e-5
+        elif kind == "mask":
+            m = m.clone()
+            far = (t - lt).abs() > 1e-3
+            i = int(torch.nonzero(far)[0])
+            m[i] = ~m[i]
+        elif kind == "drift" and calls[0] % 2 == 0:
+            t = t.clone()
+            t[0] = torch.nextafter(t[0], torch.tensor(0.0))
+        return t, m
+
+    return types.SimpleNamespace(screen_codes=screen_codes)
+
+
+@pytest.mark.parametrize("kind", ["shift", "kc+1", "mask", "drift"])
+def test_wrong_screen_fails_the_host_check(k1_host, monkeypatch, kind):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    codes, ks, lt = _screen_draws()
+    with pytest.raises(SystemExit):
+        cs.screen_vs_host(_host_screen(k1_host, kind), k1_host, codes, ks,
+                          lt, "screen")
+    assert cs.screen_vs_host(_host_screen(k1_host), k1_host, codes, ks, lt,
+                             "screen") == 0.0
+
+
+@pytest.mark.parametrize("kernel", ["screen_codes_kernel",
+                                    "tail_probs_kernel", "fused_call_kernel"])
+def test_check_no_spill_fails_a_spilling_or_missing_kernel(kernel):
+    def entry_of(name, spill):
+        return (f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1"
+                f"{len(name)}{name}EPKf\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used 64 registers\n")
+    clean = "".join(entry_of(n, 0) for n in cs.NO_SPILL)
+    cs.check_no_spill(cs.register_use(clean))
+    spilling = "".join(entry_of(n, 8 if n == kernel else 0)
+                       for n in cs.NO_SPILL)
+    with pytest.raises(SystemExit):
+        cs.check_no_spill(cs.register_use(spilling))
+    missing = "".join(entry_of(n, 0) for n in cs.NO_SPILL if n != kernel)
+    with pytest.raises(SystemExit):
+        cs.check_no_spill(cs.register_use(missing))
 
 
 def test_spill_bytes_reads_ptxas_lines():
