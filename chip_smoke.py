@@ -60,7 +60,27 @@ Phases, one line each; any failure exits non-zero before the result:
    time per launch (profiler), K1's on the step's own [B, D] probs, both
    steps' columns/s (CUDA events) and the plain versions' time per call;
    and, for the record, a copy of the DP input into [D, B] (CUDA events),
-   which the f32 entry's first design made on every call.
+   which the f32 entry's first design made on every call;
+12. device Viterbi: viterbi_batch (ops/viterbi_torch.py, torch ops on the
+   card) on the 109 cases of tests/golden/viterbi.json, one per batch, and
+   on a batch of 4,096 reads of 100 bp with 1-5 bp indels planted (seed
+   3) against 120 bp windows: at least 95% of paths identical to the C
+   realigner (viterbi_align) on each, the card's paths against the same
+   call on the CPU (the count that differ), three runs of the batch
+   identical; the batch's time (CUDA events) beside the C realigner's for
+   the same reads, one by one and in its 8-lane groups;
+13. call-parallel on the card: the port's CLI `call-parallel --pp-threads
+   2` on phase 4's workload from this process, which holds a CUDA
+   context: its workers start by spawn and launch K1, their summed SNV
+   tests are phase 4's, and its VCF is the one phase 4's records and
+   tests give through the same final filter; then the same with the host
+   engine (forked workers, no dispatch); walls beside phase 4's median
+   and each worker's start-up;
+14. somatic on the card: the port's CLI `somatic --threads 2` on a
+   tumor/normal pair of the port's simulator (one genome, two read
+   seeds, SNVs planted in the tumor only): its workers launch K1, and
+   every stage file equals the same command's with
+   LOFREQ_TPU_DEVICE_SCREEN=0 (the host engine) but for ##fileDate.
 Then a JSON line of the kernels (each with its bound: the bytes it must
 move over the card's memory rate or its f32 operations over the card's
 f32 rate, whichever is longer), the card line, and as the last line
@@ -69,7 +89,10 @@ f32 rate, whichever is longer), the card line, and as the last line
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import gzip
+import io
 import json
 import os
 import re
@@ -78,6 +101,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -134,6 +158,19 @@ F32_OPS_PER_S = 67e12
 K2_OPS_PER_KEPT = 52 + 2 + 11
 BAQ_FWD_OPS_PER_CELL, BAQ_BWD_OPS_PER_CELL = 32, 48
 BAQ_BAND = 15            # non-zero cells of a band row (2 bw + 1)
+# the device Viterbi: the realigner's goldens, and a batch of the size the
+# `viterbi` subcommand flushes at (ops/viterbi.py run_viterbi, 1,024
+# reads), four times over: reads of 100 bp against windows of the read
+# plus RWIN = 10 bases on each side
+VITERBI_GOLDEN = os.path.join(REPO, "tests", "golden", "viterbi.json")
+VIT_READS, VIT_L, VIT_LR, VIT_RWIN = 4096, 100, 120, 10
+VIT_SHARE = 0.95         # path-identical to C: tests/test_viterbi_jax.py's bar
+VIT_RUNS = 3
+# somatic: a tumor/normal pair of one genome (seed SEED), reads from two
+# seeds, SNVs planted in the tumor only
+SOMATIC_GENOME, SOMATIC_DEPTH = 50_000, 300
+SOMATIC_SEEDS = {"normal": 11, "tumor": 12}
+SOMATIC_SNVS = ((0.1, 10), (0.3, 10))
 
 
 def fail(msg: str) -> None:
@@ -783,7 +820,268 @@ def median_stages(reports):
             for k in keys}
 
 
+def viterbi_inputs(rng):
+    """VIT_READS reads of VIT_L bases, each with a 1-5 bp insertion or
+    deletion planted at offset 20-79 and base errors at its qualities'
+    rate (20-40, a tenth of the reads ending in a Q2 tail), against the
+    VIT_LR-base window realign_prep would take; the Q2 replacement is the
+    median of the read's other qualities, as realign_prep computes it."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome = bases[rng.integers(0, 4, 200_000)]
+    wins, queries, bquals, q2ds = [], [], [], []
+    for _ in range(VIT_READS):
+        s = int(rng.integers(VIT_RWIN, len(genome) - VIT_LR))
+        src = genome[s:s + VIT_L + 10]
+        n, at = int(rng.integers(1, 6)), int(rng.integers(20, 80))
+        if rng.random() < 0.5:
+            q = np.concatenate([src[:at], bases[rng.integers(0, 4, n)],
+                                src[at:]])[:VIT_L]
+        else:
+            q = np.concatenate([src[:at], src[at + n:]])[:VIT_L]
+        bq = rng.integers(20, 41, VIT_L).astype(np.uint8)
+        if rng.random() < 0.1:
+            bq[-int(rng.integers(5, 30)):] = 2
+        err = rng.random(VIT_L) < 10.0 ** (-bq / 10.0)
+        q[err] = bases[rng.integers(0, 4, int(err.sum()))]
+        vals = np.sort(bq[bq != 2]).astype(np.int64)
+        m = len(vals)
+        q2d = (int((vals[m // 2] + vals[m // 2 - 1]) / 2.0) if m % 2 == 0
+               else int(vals[m // 2]))
+        wins.append(genome[s - VIT_RWIN:s - VIT_RWIN + VIT_LR].tobytes())
+        queries.append(q.tobytes())
+        bquals.append(bq)
+        q2ds.append(q2d)
+    return wins, queries, bquals, q2ds
+
+
+def viterbi_phase(card: str) -> dict:
+    """Phase 12: the device Viterbi against the C realigner and against
+    itself on the CPU."""
+    from lofreq_tpu_torch.ops import viterbi as vc
+    from lofreq_tpu_torch.ops.viterbi_torch import viterbi_batch
+
+    with open(VITERBI_GOLDEN) as fh:
+        cases = json.load(fh)
+    t0 = time.perf_counter()
+    card_p, cpu_p, c_p = [], [], []
+    for c in cases:
+        bq = np.frombuffer(c["bqual"].encode("latin-1"), np.uint8) - 33
+        args = ([c["ref"].encode()], [c["query"].encode()], [bq],
+                [c["q2def"]])
+        card_p.append(viterbi_batch(*args, device="cuda")[0])
+        cpu_p.append(viterbi_batch(*args, device="cpu")[0])
+        c_p.append(vc.viterbi_align(c["ref"].encode(), c["query"].encode(),
+                                    c["bqual"].encode(), c["q2def"]))
+    golden_s = time.perf_counter() - t0
+    g_same = sum(a == b for a, b in zip(card_p, c_p))
+    g_cpu = sum(a != b for a, b in zip(card_p, cpu_p))
+    check(g_same >= int(len(cases) * VIT_SHARE),
+          f"device Viterbi: {g_same} of {len(cases)} golden paths equal the "
+          "C realigner's")
+
+    rng = np.random.default_rng(SEED)
+    wins, queries, bquals, q2ds = viterbi_inputs(rng)
+    viterbi_batch(wins[:64], queries[:64], bquals[:64], q2ds[:64],
+                  device="cuda")   # warm-up
+    runs, ms = [], []
+    for _ in range(VIT_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        runs.append(viterbi_batch(wins, queries, bquals, q2ds,
+                                  device="cuda"))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    got = runs[0]
+    check(all(r == got for r in runs), "device Viterbi: runs of one batch "
+          "differ")
+    prof_got, prof_wall, dev = device_profile(
+        lambda: viterbi_batch(wins, queries, bquals, q2ds, device="cuda"))
+    check(prof_got == got, "device Viterbi: the profiled run differs")
+    report_profile(f"one device Viterbi batch {[VIT_READS, VIT_L, VIT_LR]}",
+                   prof_wall, dev)
+    t0 = time.perf_counter()
+    cpu = viterbi_batch(wins, queries, bquals, q2ds, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    preps = [(q, (b + 33).tobytes(), d, w)
+             for w, q, b, d in zip(wins, queries, bquals, q2ds)]
+    t0 = time.perf_counter()
+    want = [vc.viterbi_align(w, q, b, d) for q, b, d, w in preps]
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    grouped = [r for i in range(0, len(preps), 8)
+               for r in vc.viterbi_align_group(preps[i:i + 8], 8)]
+    c_group_ms = (time.perf_counter() - t0) * 1e3
+    check(grouped == want, "the C realigner's 8-lane groups differ from its "
+          "one-read form")
+    same = sum(a == b for a, b in zip(got, want))
+    n_cpu = sum(a != b for a, b in zip(got, cpu))
+    check(same >= int(VIT_READS * VIT_SHARE),
+          f"device Viterbi: {same} of {VIT_READS} batch paths equal the C "
+          "realigner's")
+    check(n_cpu <= VIT_READS - int(VIT_READS * VIT_SHARE),
+          f"device Viterbi: {n_cpu} of {VIT_READS} paths differ between the "
+          "card and the CPU")
+    out = {"golden_cases": len(cases), "golden_same_as_c": g_same,
+           "golden_card_vs_cpu_differ": g_cpu, "golden_s": golden_s,
+           "batch": [VIT_READS, VIT_L, VIT_LR], "batch_same_as_c": same,
+           "batch_card_vs_cpu_differ": n_cpu,
+           "batch_ms": [round(m, 3) for m in ms],
+           "batch_ms_median": statistics.median(ms),
+           "batch_launches": sum(n for n, _ in dev.values()),
+           "batch_device_ms": sum(us for _, us in dev.values()) / 1e3,
+           "cpu_batch_ms": cpu_ms, "c_one_by_one_ms": c_ms,
+           "c_8_lane_ms": c_group_ms, "card": card}
+    say("viterbi", json.dumps(out))
+    return out
+
+
+def _vcf_body(path: str, skip=("##fileDate", "##source")) -> list:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as fh:
+        return [ln for ln in fh.read().splitlines() if not ln.startswith(skip)]
+
+
+def call_parallel_phase(art, want, call_median, td, reset_counts, cp,
+                        card: str) -> dict:
+    """Phase 13: the CLI's call-parallel with two workers, from this
+    process (which holds a CUDA context), on the card and on the host."""
+    from lofreq_tpu_torch.call.caller import VarcallConf
+    from lofreq_tpu_torch.cli import main as cli_main
+    from lofreq_tpu_torch.pipelines import parallel_call as pc
+
+    check(torch.cuda.is_initialized(), "chip_smoke holds no CUDA context "
+          "before call-parallel")
+    # what phase 4's records and tests give through call-parallel's own
+    # final filter
+    single = os.path.join(td, "single.vcf")
+    with contextlib.redirect_stderr(io.StringIO()):
+        pc.finalize_parallel_output(
+            [v.to_line() for v in want.vars], want.stats.num_snv_tests,
+            want.stats.num_indel_tests,
+            argparse.Namespace(ref=art["fa"], out=single,
+                               no_default_filter=False), VarcallConf())
+    out = {}
+    for name, flags in (("device", []), ("host", ["--no-device-screen"])):
+        path = os.path.join(td, f"parallel_{name}.vcf")
+        err = io.StringIO()
+        reset_counts()
+        pc.reset_parallel_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["call-parallel", "--pp-threads", "2", "-f",
+                           art["fa"], "-o", path, *flags, art["bam"]])
+        wall = time.perf_counter() - t0
+        stats = dict(pc.PARALLEL_DISPATCH_STATS)
+        pool = dict(pc.POOL_STATS)
+        check(rc == 0, f"call-parallel ({name}) exited {rc}: "
+              f"{err.getvalue()[-2000:]}")
+        n_snv = int(re.search(r"substitution tests performed: (\d+)",
+                              err.getvalue()).group(1))
+        check(n_snv == want.stats.num_snv_tests,
+              f"call-parallel ({name}): {n_snv} SNV tests, phase 4 "
+              f"{want.stats.num_snv_tests}")
+        check(_vcf_body(path) == _vcf_body(single),
+              f"call-parallel ({name}): its VCF differs from phase 4's "
+              "records through the same filter")
+        check(cp.launch_count() == 0, "this process launched K1 during "
+              "call-parallel: the workers should")
+        if name == "device":
+            check(pool["start_method"] == "spawn",
+                  f"workers on the card started by {pool['start_method']}")
+            check(stats["dispatched"] > 0 and stats["screen_codes"] > 0,
+                  f"call-parallel's workers launched K1 {stats}")
+            check(stats["screen_codes"] == stats["dispatched"],
+                  f"{stats['screen_codes']} K1 launches for "
+                  f"{stats['dispatched']} dispatches in the workers")
+        else:
+            check(pool["start_method"] == "fork" and stats["dispatched"] == 0,
+                  f"host-engine call-parallel: {pool} {stats}")
+        out[name] = {"wall_s": wall, "snv_tests": n_snv,
+                     "records": len(_vcf_body(path, ("#",))),
+                     "workers": stats, "start_method": pool["start_method"],
+                     "worker_ready_s": pool["ready_s"]}
+    out["single_call_median_s"] = call_median
+    out["card"] = card
+    say("parallel", json.dumps(out))
+    return out
+
+
+def somatic_phase(td, reset_counts, cp, card: str) -> dict:
+    """Phase 14: the CLI's somatic with two workers on the card, against
+    the same command on the host engine."""
+    from lofreq_tpu_torch.cli import main as cli_main
+    from lofreq_tpu_torch.pipelines import parallel_call as pc
+    from lofreq_tpu_torch.testing.simulate_fast import simulate_fast
+
+    t0 = time.perf_counter()
+    sims = {}
+    for sample, seed in SOMATIC_SEEDS.items():
+        d = os.path.join(td, f"somatic_{sample}")
+        os.makedirs(d)
+        sims[sample] = simulate_fast(
+            d, genome_len=SOMATIC_GENOME, depth=SOMATIC_DEPTH, seed=seed,
+            genome_seed=SEED,
+            snvs=SOMATIC_SNVS if sample == "tumor" else ())
+    check(sims["tumor"]["genome"] == sims["normal"]["genome"],
+          "the tumor and normal samples differ in genome")
+    sim_s = time.perf_counter() - t0
+    out = {}
+    for name, env in (("device", {}),
+                      ("host", {"LOFREQ_TPU_DEVICE_SCREEN": "0"})):
+        d = os.path.join(td, f"somatic_out_{name}")
+        os.makedirs(d)
+        reset_counts()
+        pc.reset_parallel_stats()
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env):
+            rc = cli_main(["somatic", "-t", sims["tumor"]["bam"], "-n",
+                           sims["normal"]["bam"], "-f", sims["tumor"]["fa"],
+                           "-o", d + os.sep, "--threads", "2"])
+        wall = time.perf_counter() - t0
+        stats = dict(pc.PARALLEL_DISPATCH_STATS)
+        check(rc == 0, f"somatic ({name}) exited {rc}")
+        check(cp.launch_count() == 0, "this process launched K1 during "
+              "somatic: the workers should")
+        out[name] = {"dir": d, "wall_s": wall, "workers": stats,
+                     "start_method": pc.POOL_STATS["start_method"],
+                     "worker_ready_s": pc.POOL_STATS["ready_s"]}
+    dev, host = out["device"], out["host"]
+    check(dev["start_method"] == "spawn" and dev["workers"]["dispatched"] > 0
+          and dev["workers"]["screen_codes"] == dev["workers"]["dispatched"],
+          f"somatic's workers on the card: {dev['start_method']} "
+          f"{dev['workers']}")
+    check(host["start_method"] == "fork"
+          and host["workers"]["dispatched"] == 0,
+          f"somatic on the host engine: {host['start_method']} "
+          f"{host['workers']}")
+    names = sorted(n for n in os.listdir(dev["dir"])
+                   if n.endswith((".vcf.gz", ".log")))
+    check(names == sorted(n for n in os.listdir(host["dir"])
+                          if n.endswith((".vcf.gz", ".log")))
+          and len(names) >= 10, f"somatic's stage files differ: {names}")
+    for n in names:
+        a, b = (os.path.join(r["dir"], n) for r in (dev, host))
+        check(_vcf_body(a, ("##fileDate",)) == _vcf_body(b, ("##fileDate",)),
+              f"somatic: {n} differs between the card and the host engine")
+    final = _vcf_body(os.path.join(dev["dir"], "somatic_final.snvs.vcf.gz"),
+                      ("#",))
+    truth = {(t[0] + 1) for t in sims["tumor"]["truth"]}
+    called = {int(r.split("\t")[1]) for r in final}
+    check(final and called <= truth, f"somatic called {sorted(called)}, "
+          f"planted {sorted(truth)}")
+    res = {k: {x: y for x, y in v.items() if x != "dir"}
+           for k, v in out.items()}
+    res.update(simulated_s=sim_s, final_snvs=len(final),
+               planted=len(truth), stage_files=len(names), card=card)
+    say("somatic", json.dumps(res))
+    return res
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
     sys.path.insert(0, REPO)
@@ -874,91 +1172,94 @@ def main() -> int:
             say("stages", f"{side} median s {json.dumps(stages[side])}")
         return stages
 
-    with tempfile.TemporaryDirectory() as td:
-        t0 = time.perf_counter()
-        art = simulate_fast(td, genome_len=GENOME, depth=DEPTH, seed=SEED)
-        say("data", f"simulated {GENOME // 1000} kb at {DEPTH}x, seed "
-            f"{SEED}, in {time.perf_counter() - t0:.3f} s")
-        # warm-up region: builds the native C library and the executors
-        run_call(art["bam"], art["fa"], region=f"{art['chrom']}:1-6000",
-                 vconf=VarcallConf(use_device_screen=True))
+    # the workload's files stay until the end: phases 13 and 14 reuse them
+    work = tempfile.TemporaryDirectory()
+    td = work.name
+    t0 = time.perf_counter()
+    art = simulate_fast(td, genome_len=GENOME, depth=DEPTH, seed=SEED)
+    say("data", f"simulated {GENOME // 1000} kb at {DEPTH}x, seed "
+        f"{SEED}, in {time.perf_counter() - t0:.3f} s")
+    # warm-up region: builds the native C library and the executors
+    run_call(art["bam"], art["fa"], region=f"{art['chrom']}:1-6000",
+             vconf=VarcallConf(use_device_screen=True))
 
-        def device_path():
-            return run_call(art["bam"], art["fa"],
-                            vconf=VarcallConf(use_device_screen=True))
+    def device_path():
+        return run_call(art["bam"], art["fa"],
+                        vconf=VarcallConf(use_device_screen=True))
 
-        def baq_path():
-            return run_call(art["bam"], art["fa"],
-                            vconf=VarcallConf(use_device_screen=True,
-                                              use_device_baq=True))
+    def baq_path():
+        return run_call(art["bam"], art["fa"],
+                        vconf=VarcallConf(use_device_screen=True,
+                                          use_device_baq=True))
 
-        def host_path():
-            return run_call(art["bam"], art["fa"],
-                            vconf=VarcallConf(use_device_screen=False))
+    def host_path():
+        return run_call(art["bam"], art["fa"],
+                        vconf=VarcallConf(use_device_screen=False))
 
-        # the counted main-path run
-        reset_counts()
-        counted = timed(device_path)
-        launches = cp.launch_count()
-        stats = dict(screen.DISPATCH_STATS)
-        res, wall, _ = counted
-        check(launches > 0, "the main path launched the screen kernel 0 "
-              "times")
-        check(stats["dispatched"] > 0, "the main path dispatched no screen")
-        check(launches == stats["dispatched"],
-              f"{launches} launches for {stats['dispatched']} dispatches")
-        check(ca.launch_count() == {"baq_fwd": 0, "baq_bwd": 0},
-              "the default path launched a BAQ kernel")
-        check(len(res.vars) > 0, "the port called no variant")
-        say("call", f"counted run: {wall:.4f} s, {len(res.vars)} records, "
-            f"{res.stats.num_snv_tests} SNV tests, {stats['columns']} "
-            f"survivor columns in {stats['dispatched']} dispatches, "
-            f"{launches} kernel launches")
-        runs = in_turns("device", counted, device_path, host_path,
-                        WALL_PAIRS)
-        want = runs["host"][0][0]
-        check_same(runs, want)
-        report_walls("device", runs, WALL_PAIRS)
-        prof_res, prof_wall, dev = device_profile(device_path)
-        check(records(prof_res) == records(want), "profiled run differs")
-        report_profile("one device-path call", prof_wall, dev)
+    # the counted main-path run
+    reset_counts()
+    counted = timed(device_path)
+    launches = cp.launch_count()
+    stats = dict(screen.DISPATCH_STATS)
+    res, wall, _ = counted
+    check(launches > 0, "the main path launched the screen kernel 0 "
+          "times")
+    check(stats["dispatched"] > 0, "the main path dispatched no screen")
+    check(launches == stats["dispatched"],
+          f"{launches} launches for {stats['dispatched']} dispatches")
+    check(ca.launch_count() == {"baq_fwd": 0, "baq_bwd": 0},
+          "the default path launched a BAQ kernel")
+    check(len(res.vars) > 0, "the port called no variant")
+    say("call", f"counted run: {wall:.4f} s, {len(res.vars)} records, "
+        f"{res.stats.num_snv_tests} SNV tests, {stats['columns']} "
+        f"survivor columns in {stats['dispatched']} dispatches, "
+        f"{launches} kernel launches")
+    runs = in_turns("device", counted, device_path, host_path,
+                    WALL_PAIRS)
+    want = runs["host"][0][0]
+    check_same(runs, want)
+    report_walls("device", runs, WALL_PAIRS)
+    call_median = statistics.median(w for _, w, _ in runs["device"])
+    prof_res, prof_wall, dev = device_profile(device_path)
+    check(records(prof_res) == records(want), "profiled run differs")
+    report_profile("one device-path call", prof_wall, dev)
 
-        # the counted device-BAQ run: K3/K4 in the runner, K1 in the
-        # sub-screen, and every eligible read of every window on the card
-        reset_counts()
-        with device_baq.count_extracted_reads() as extracted:
-            counted = timed(baq_path)
-        baq_launches = ca.launch_count()
-        k1_baq = cp.launch_count()
-        baq_stats = dict(device_baq.RUN_STATS)
-        res, wall, _ = counted
-        check(baq_launches["baq_fwd"] > 0 and baq_launches["baq_bwd"] > 0,
-              f"the device-BAQ path launched the BAQ kernels {baq_launches}")
-        check(baq_launches["baq_fwd"] == baq_launches["baq_bwd"]
-              == baq_stats["batches"],
-              f"{baq_launches} launches for {baq_stats['batches']} batches")
-        check(k1_baq > 0, "the device-BAQ path launched the screen kernel 0 "
-              "times")
-        check(baq_stats["reads"] == extracted["eligible"] > 0,
-              f"the runner took {baq_stats['reads']} reads of the "
-              f"{extracted['eligible']} eligible ones")
-        say("call", f"device-BAQ counted run: {wall:.4f} s, "
-            f"{len(res.vars)} records, {res.stats.num_snv_tests} SNV "
-            f"tests; runner reads {baq_stats['reads']} in "
-            f"{baq_stats['batches']} batches = eligible reads "
-            f"{extracted['eligible']} over {extracted['windows']} "
-            f"extracted windows; launches K3 {baq_launches['baq_fwd']}, "
-            f"K4 {baq_launches['baq_bwd']}, K1 {k1_baq}")
-        runs = in_turns("device_baq", counted, baq_path, host_path,
-                        BAQ_PAIRS)
-        check_same(runs, want)
-        stages = report_walls("device_baq", runs, BAQ_PAIRS)
-        for stage in ("ingest.extract", "ingest.device_baq"):
-            check(stage in stages["device_baq"], f"no {stage} stage")
-        prof_res, prof_wall, dev = device_profile(baq_path)
-        check(records(prof_res) == records(want),
-              "profiled device-BAQ run differs")
-        report_profile("one device-BAQ call", prof_wall, dev)
+    # the counted device-BAQ run: K3/K4 in the runner, K1 in the
+    # sub-screen, and every eligible read of every window on the card
+    reset_counts()
+    with device_baq.count_extracted_reads() as extracted:
+        counted = timed(baq_path)
+    baq_launches = ca.launch_count()
+    k1_baq = cp.launch_count()
+    baq_stats = dict(device_baq.RUN_STATS)
+    res, wall, _ = counted
+    check(baq_launches["baq_fwd"] > 0 and baq_launches["baq_bwd"] > 0,
+          f"the device-BAQ path launched the BAQ kernels {baq_launches}")
+    check(baq_launches["baq_fwd"] == baq_launches["baq_bwd"]
+          == baq_stats["batches"],
+          f"{baq_launches} launches for {baq_stats['batches']} batches")
+    check(k1_baq > 0, "the device-BAQ path launched the screen kernel 0 "
+          "times")
+    check(baq_stats["reads"] == extracted["eligible"] > 0,
+          f"the runner took {baq_stats['reads']} reads of the "
+          f"{extracted['eligible']} eligible ones")
+    say("call", f"device-BAQ counted run: {wall:.4f} s, "
+        f"{len(res.vars)} records, {res.stats.num_snv_tests} SNV "
+        f"tests; runner reads {baq_stats['reads']} in "
+        f"{baq_stats['batches']} batches = eligible reads "
+        f"{extracted['eligible']} over {extracted['windows']} "
+        f"extracted windows; launches K3 {baq_launches['baq_fwd']}, "
+        f"K4 {baq_launches['baq_bwd']}, K1 {k1_baq}")
+    runs = in_turns("device_baq", counted, baq_path, host_path,
+                    BAQ_PAIRS)
+    check_same(runs, want)
+    stages = report_walls("device_baq", runs, BAQ_PAIRS)
+    for stage in ("ingest.extract", "ingest.device_baq"):
+        check(stage in stages["device_baq"], f"no {stage} stage")
+    prof_res, prof_wall, dev = device_profile(baq_path)
+    check(records(prof_res) == records(want),
+          "profiled device-BAQ run differs")
+    report_profile("one device-BAQ call", prof_wall, dev)
 
     mean_b = max(1, round(stats["columns"] / stats["dispatched"]))
     ms, plain_ms, k1_bound = time_shape(cp, rng, mean_b)
@@ -1035,6 +1336,14 @@ def main() -> int:
         del unf, fus, plain
     col = time_column_step(cp, dc, fc, step, fused, *batches["deployment"])
     shim_dir.cleanup()
+
+    t0 = time.perf_counter()
+    viterbi_phase(card)
+    call_parallel_phase(art, want, call_median, td, reset_counts, cp, card)
+    somatic_phase(td, reset_counts, cp, card)
+    work.cleanup()
+    say("phases", f"12-14 took {time.perf_counter() - t0:.1f} s; chip_smoke "
+        f"{time.perf_counter() - started:.1f} s so far")
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "lofreq_tpu"))

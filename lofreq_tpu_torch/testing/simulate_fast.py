@@ -28,9 +28,14 @@ for _i, _c in enumerate("=ACMGRSVTWYHKDBN"):
 
 def simulate_fast(tmpdir, genome_len=2_000_000, depth=100, read_len=100,
                   snvs=((0.02, 20), (0.1, 20), (0.5, 20)), seed=3,
-                  qual_range=(28, 38), chrom="big1"):
+                  qual_range=(28, 38), chrom="big1", genome_seed=None):
+    """genome_seed: draw the genome from a seed of its own, so that two
+    samples (a tumor/normal pair) share it; by default `seed` draws the
+    genome, the SNVs and the reads, as tests/simulate_fast.py does."""
     rng = np.random.default_rng(seed)
-    genome = BASES[rng.integers(0, 4, genome_len)]
+    genome = BASES[(rng if genome_seed is None
+                    else np.random.default_rng(genome_seed))
+                   .integers(0, 4, genome_len)]
     margin = read_len + 10
 
     n_vars = sum(n for _af, n in snvs)

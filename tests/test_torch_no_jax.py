@@ -97,6 +97,39 @@ def test_port_column_step_imports_no_jax(tmp_path):
     assert last.endswith("FOREIGN []"), last
 
 
+def test_port_subcommands_import_no_jax(tmp_path):
+    """viterbi, vcfset and call-parallel --device cpu (two forked workers
+    running the screen's plain version) through the port's CLI in a
+    fresh process, with the device Viterbi and somatic imported: no jax,
+    jaxlib or lofreq_tpu module is loaded."""
+    art = simulate_fast(str(tmp_path), genome_len=5_000, depth=100, seed=5)
+    d = str(tmp_path)
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from lofreq_tpu_torch.cli import main\n"
+        "from lofreq_tpu_torch.ops import viterbi_torch\n"
+        "from lofreq_tpu_torch.pipelines import parallel_call, somatic\n"
+        f"fa, bam, d = {art['fa']!r}, {art['bam']!r}, {d!r}\n"
+        "rcs = [main(['viterbi', '-f', fa, '-o', d + '/v.bam', bam]),\n"
+        "       main(['call-parallel', '--pp-threads', '2', '-f', fa,\n"
+        "             '--device-screen', '--device', 'cpu', '-o',\n"
+        "             d + '/p.vcf.gz', bam]),\n"
+        "       main(['vcfset', '-a', 'intersect', '-1', d + '/p.vcf.gz',\n"
+        "             '-2', d + '/p.vcf.gz', '-o', d + '/i.vcf'])]\n"
+        "n = parallel_call.PARALLEL_DISPATCH_STATS['dispatched']\n"
+        + FOREIGN +
+        "print('RCS', rcs, 'DISPATCHED', n, 'FOREIGN', foreign)\n"
+    )
+    last = _run_fresh(code, tmp_path)
+    assert last.startswith("RCS [0, 0, 0] DISPATCHED "), last
+    assert int(last.split()[5]) > 0
+    assert last.endswith("FOREIGN []"), last
+    assert (tmp_path / "v.bam").exists() and (tmp_path / "i.vcf").exists()
+
+
 def test_port_sources_import_no_jax():
     """No file of the port, nor chip_smoke.py, imports jax or lofreq_tpu."""
     pats = [re.compile(r"^\s*(import jax|from jax)", re.M),

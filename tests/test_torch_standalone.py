@@ -36,6 +36,11 @@ VERBATIM = [
     "pileup/fast_columns.py", "pileup/native_ingest.py",
     "filt/__init__.py", "filt/filter.py",
     "pipelines/plp_summary.py", "ops/baq.py", "ops/baq_hmm.py",
+    "core/binom.py", "io/tabix.py", "ops/viterbi.py",
+    "pipelines/indelqual.py", "pipelines/vcfset.py", "pipelines/uniq.py",
+    "pipelines/somatic.py",
+    "tools/__init__.py", "tools/vcftools.py", "tools/somatic_filters.py",
+    "tools/bias.py", "tools/vcfplot.py",
 ]
 C_SOURCES = port_build.SRCS + port_build.DEPS
 # a comment's absolute path to the LoFreq sources: the copies cite them
