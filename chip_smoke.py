@@ -80,7 +80,28 @@ Phases, one line each; any failure exits non-zero before the result:
    tumor/normal pair of the port's simulator (one genome, two read
    seeds, SNVs planted in the tumor only): its workers launch K1, and
    every stage file equals the same command's with
-   LOFREQ_TPU_DEVICE_SCREEN=0 (the host engine) but for ##fileDate.
+   LOFREQ_TPU_DEVICE_SCREEN=0 (the host engine) but for ##fileDate;
+15. call-distributed on the card: the port's CLI `call-distributed` with
+   two ranks, each a subprocess (through
+   lofreq_tpu_torch.testing.rank_harness, which records its
+   run_distributed_call dict) with its own CUDA context on this host's
+   card, joined over Gloo, on phase 4's workload: each rank launches K1,
+   the all-reduced SNV tests are phase 4's, and the VCF is the one phase
+   4's records and tests give through the same final filter; the wall
+   beside phase 4's median, and each rank's start-up.  Each rank has a
+   wall-clock limit and a process-group timeout; on a failure every rank
+   is killed;
+16. sharded column step and split screen: entry.dryrun_checks on two
+   shards of one card, [cuda:0, cuda:0] (the dry run's batches, the
+   sharded step against the unsharded one); the sharded step on the
+   deployment and spread batches of phase 10 against the unsharded step,
+   every output identical, tails bit for bit, one K1-f32 launch per
+   shard; the production screen's dispatch split over the two shards
+   against the same dispatch unsplit, masks identical.  Where the host
+   has two cards or more, the NCCL forms too (nccl_phase:
+   dryrun_multichip(2), the sharded step over two NCCL ranks, `call` with
+   the screen split over the cards, call-distributed with NCCL);
+   otherwise one line says they were not run.
 Then a JSON line of the kernels (each with its bound: the bytes it must
 move over the card's memory rate or its f32 operations over the card's
 f32 rate, whichever is longer), the card line, and as the last line
@@ -96,6 +117,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -171,6 +193,16 @@ VIT_RUNS = 3
 SOMATIC_GENOME, SOMATIC_DEPTH = 50_000, 300
 SOMATIC_SEEDS = {"normal": 11, "tumor": 12}
 SOMATIC_SNVS = ((0.1, 10), (0.3, 10))
+# call-distributed: two ranks, each a process with its own CUDA context on
+# this host's card (over Gloo) or on a card of its own (NCCL, two cards
+# or more), each within a wall-clock limit and a process-group timeout
+DIST_RANKS = 2
+DIST_RANK_S = 300
+DIST_TIMEOUT_S = 240
+# phase 16's screen split, and the NCCL form's batch and workload
+SPLIT_B, SPLIT_SIG = 4096, 0.01
+NCCL_BATCH = (8192, 512)
+NCCL_GENOME = 50_000
 
 
 def fail(msg: str) -> None:
@@ -944,18 +976,12 @@ def _vcf_body(path: str, skip=("##fileDate", "##source")) -> list:
         return [ln for ln in fh.read().splitlines() if not ln.startswith(skip)]
 
 
-def call_parallel_phase(art, want, call_median, td, reset_counts, cp,
-                        card: str) -> dict:
-    """Phase 13: the CLI's call-parallel with two workers, from this
-    process (which holds a CUDA context), on the card and on the host."""
+def single_vcf(art, want, td) -> str:
+    """The VCF that phase 4's records and tests give through the final
+    filter of call-parallel and call-distributed (their own merge)."""
     from lofreq_tpu_torch.call.caller import VarcallConf
-    from lofreq_tpu_torch.cli import main as cli_main
     from lofreq_tpu_torch.pipelines import parallel_call as pc
 
-    check(torch.cuda.is_initialized(), "chip_smoke holds no CUDA context "
-          "before call-parallel")
-    # what phase 4's records and tests give through call-parallel's own
-    # final filter
     single = os.path.join(td, "single.vcf")
     with contextlib.redirect_stderr(io.StringIO()):
         pc.finalize_parallel_output(
@@ -963,6 +989,18 @@ def call_parallel_phase(art, want, call_median, td, reset_counts, cp,
             want.stats.num_indel_tests,
             argparse.Namespace(ref=art["fa"], out=single,
                                no_default_filter=False), VarcallConf())
+    return single
+
+
+def call_parallel_phase(art, want, call_median, td, single, reset_counts,
+                        cp, card: str) -> dict:
+    """Phase 13: the CLI's call-parallel with two workers, from this
+    process (which holds a CUDA context), on the card and on the host."""
+    from lofreq_tpu_torch.cli import main as cli_main
+    from lofreq_tpu_torch.pipelines import parallel_call as pc
+
+    check(torch.cuda.is_initialized(), "chip_smoke holds no CUDA context "
+          "before call-parallel")
     out = {}
     for name, flags in (("device", []), ("host", ["--no-device-screen"])):
         path = os.path.join(td, f"parallel_{name}.vcf")
@@ -1078,6 +1116,319 @@ def somatic_phase(td, reset_counts, cp, card: str) -> dict:
                planted=len(truth), stage_files=len(names), card=card)
     say("somatic", json.dumps(res))
     return res
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(cmds, what: str) -> list:
+    """Run the commands `cmds` as subprocesses started together, from the
+    repo and with it on PYTHONPATH, each within DIST_RANK_S of wall time
+    (failing the run past it); every one still running is killed on the
+    way out.  Returns [(exit code, stderr)]."""
+    env = {**os.environ, "PYTHONPATH": REPO,
+           "LOFREQ_TPU_DIST_TIMEOUT": str(DIST_TIMEOUT_S)}
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(
+                cmd, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True))
+        out = []
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=DIST_RANK_S)
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: process {r} ran past {DIST_RANK_S} s")
+            out.append((p.returncode, err))
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+
+
+def run_ranks(td: str, name: str, argv_of, n: int = DIST_RANKS) -> tuple:
+    """Ranks 0..n-1 of the port's CLI, argv_of(rank), through
+    lofreq_tpu_torch.testing.rank_harness (which records each rank's
+    run_distributed_call dict), with a process-group timeout of
+    DIST_TIMEOUT_S (run_procs).  Returns (the wall-clock time the ranks
+    were started, [(exit code, stderr, the rank's dict or None)])."""
+    infos = [os.path.join(td, f"{name}_rank{r}.json") for r in range(n)]
+    started = time.time()
+    res = run_procs([[sys.executable, "-m",
+                      "lofreq_tpu_torch.testing.rank_harness", infos[r],
+                      *argv_of(r)] for r in range(n)], name)
+    out = []
+    for (rc, err), info in zip(res, infos):
+        rec = None
+        if os.path.exists(info):
+            with open(info) as fh:
+                rec = json.load(fh)
+        out.append((rc, err, rec))
+    return started, out
+
+
+def distributed_phase(art, want, call_median, td, single, reset_counts, cp,
+                      card: str) -> dict:
+    """Phase 15: the CLI's call-distributed with DIST_RANKS ranks on this
+    host's card over Gloo, each a process with its own CUDA context,
+    against phase 4's records and tests through the same final filter."""
+    path = os.path.join(td, "distributed.vcf")
+    port = free_port()
+    reset_counts()
+    t0 = time.perf_counter()
+    started, ranks = run_ranks(td, "distributed", lambda r: [
+        "call-distributed", "--num-processes", str(DIST_RANKS),
+        "--process-id", str(r), "--coordinator", f"127.0.0.1:{port}",
+        "--threads-per-host", "2", "-f", art["fa"], "-o", path, art["bam"]])
+    wall = time.perf_counter() - t0
+    for r, (rc, err, _) in enumerate(ranks):
+        check(rc == 0, f"call-distributed rank {r} exited {rc}: {err[-2000:]}")
+    infos = [info for _, _, info in ranks]
+    n_snv = want.stats.num_snv_tests
+    check(all(i is not None and i["num_snv_tests"] == n_snv for i in infos),
+          f"call-distributed: the ranks' all-reduced SNV tests "
+          f"{[i and i['num_snv_tests'] for i in infos]}, phase 4 {n_snv}")
+    check(f"substitution tests performed: {n_snv}" in ranks[0][1],
+          "call-distributed: rank 0 did not report phase 4's SNV tests")
+    check(_vcf_body(path) == _vcf_body(single),
+          "call-distributed: its VCF differs from phase 4's records through "
+          "the same filter")
+    n_records = len(_vcf_body(path, ("#",)))
+    check(n_records == len(_vcf_body(single, ("#",))) > 0
+          and sum(i["n_local_vars"] for i in infos) >= n_records,
+          f"call-distributed: {n_records} records, phase 4's through the "
+          f"filter {len(_vcf_body(single, ('#',)))}")
+    for i in infos:
+        c = i["counts"]
+        check(c["screen_codes"] > 0 and c["screen_codes"] == c["dispatched"],
+              f"call-distributed rank {i['rank']} launched K1 "
+              f"{c['screen_codes']} times for {c['dispatched']} dispatches")
+    check(cp.launch_count() == 0, "this process launched K1 during "
+          "call-distributed: the ranks should")
+    out = {"ranks": DIST_RANKS, "backend": "gloo", "wall_s": wall,
+           "snv_tests": n_snv, "records": n_records,
+           "rank_records": [i["n_local_vars"] for i in infos],
+           "rank_counts": [i["counts"] for i in infos],
+           "rank_ready_s": [i["ready_at"] - started for i in infos],
+           "single_call_median_s": call_median, "card": card}
+    say("distributed", json.dumps(out))
+    return out
+
+
+def sharded_phase(cp, dc, screen, batches, reset_counts, card: str,
+                  dev=torch.device("cuda", 0)) -> dict:
+    """Phase 16: the sharded column step and the split screen over two
+    shards on one card, [dev, dev], against the unsharded ones on dev."""
+    from lofreq_tpu_torch.entry import dryrun_checks
+
+    shards = [dev, dev]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        dryrun_checks(shards)
+    except AssertionError as e:
+        fail(f"the dry run's checks on {shards}: {e}")
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    # 5 batches, each through the sharded step (2 shards) and the serial
+    # one; the screen split (2) and the whole screen (1)
+    dry = {e: cp.launch_count(e, card=dev.index) for e in ("tail_probs",
+                                                            "screen_codes")}
+    check(dry == {"tail_probs": 15, "screen_codes": 3},
+          f"the dry run's K1 launches {dry}, want 15 and 3")
+    out = {"dryrun_s": dry_s, "dryrun_launches": dry}
+    fn, devs = dc.build_sharded_column_call(shards, use_baq=True)
+    serial = dc.build_column_call(use_baq=True, device=dev)
+    for name in ("deployment", "spread"):
+        unf_args = batches[name][0]
+        reset_counts()
+        got = fn(*unf_args)
+        torch.cuda.synchronize()
+        launches = cp.launch_count("tail_probs", card=dev.index)
+        check(launches == len(devs), f"sharded step {name}: {launches} K1-f32 "
+              f"launches for {len(devs)} shards")
+        want = serial(*unf_args)
+        for k in dc.STEP_KEYS + ("num_tested",):
+            check(got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                                want[k]),
+                  f"sharded step {name}: {k} differs from the unsharded step")
+        out[name] = {"shape": list(unf_args[0].shape),
+                     "tested": int(got["num_tested"]),
+                     "candidates": int(got["candidate"].sum()),
+                     "launches_per_shard": launches // len(devs)}
+    check(out["spread"]["candidates"] > 0, "the spread batch has no "
+          "candidate")
+    # the production screen's dispatch, split over the two shards, against
+    # the same dispatch on one card
+    rng = np.random.default_rng(SEED + 16)
+    codes = rng.integers(16, 160, (SPLIT_B, 128)).astype(np.uint8)
+    codes[rng.random((SPLIT_B, 128)) < 0.3] = 255
+    ks = rng.integers(1, 25, SPLIT_B).astype(np.int32)
+    lt = rng.uniform(-40.0, -1.0, SPLIT_B)
+    bonf = SPLIT_SIG * screen.MARGIN / np.exp(lt)
+    reset_counts()
+    with mock.patch.object(screen, "local_mesh", lambda d: shards):
+        split = screen.screen_fetch(screen.screen_dispatch_codes(
+            codes, ks, bonf, SPLIT_SIG, dev))
+    split_launches = cp.launch_count("screen_codes", card=dev.index)
+    whole = screen.screen_fetch(screen.screen_dispatch_codes(
+        codes, ks, bonf, SPLIT_SIG, dev))
+    check(split_launches == 2 and cp.launch_count("screen_codes") == 3
+          and screen.DISPATCH_STATS["dispatched"] == 2,
+          f"the split screen: {split_launches} launches, then "
+          f"{cp.launch_count('screen_codes')} with the whole one, "
+          f"{screen.DISPATCH_STATS['dispatched']} dispatches")
+    check(np.array_equal(split, whole) and 0 < whole.sum() < SPLIT_B,
+          f"the split screen's mask differs from the whole one's "
+          f"({int((split != whole).sum())} columns) or is uniform")
+    out["screen"] = {"shape": [SPLIT_B, 128], "candidates": int(whole.sum()),
+                     "launches_per_shard": split_launches // 2}
+    out["card"] = card
+    say("sharded", json.dumps(out))
+    return out
+
+
+def nccl_rank(rank: int, port: int, out_path: str, ranks: int = DIST_RANKS,
+              device: str = "cuda") -> None:
+    """One rank of the NCCL check (nccl_phase): joins the process group
+    as call-distributed does (on "cuda": its own card, NCCL for CUDA
+    tensors), runs its share of a spread batch through the sharded step,
+    whose num_tested is all-reduced over the group, and writes what it saw
+    to out_path."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from lofreq_tpu_torch.ops import cuda_poissbin as cp
+    from lofreq_tpu_torch.ops import device_call as dc
+    from lofreq_tpu_torch.parallel import distributed as pd
+
+    os.environ.setdefault("LOFREQ_TPU_DIST_TIMEOUT", str(DIST_TIMEOUT_S))
+    check(pd.initialize(f"127.0.0.1:{port}", ranks, rank, device=device),
+          "nccl_rank: no process group")
+    try:
+        dev = pd.local_mesh(device)[0]
+        batch = [torch.from_numpy(a).to(dev)
+                 for a in spread_batch(*NCCL_BATCH)]
+        B = NCCL_BATCH[0]
+        lo, hi = B * rank // ranks, B * (rank + 1) // ranks
+        fn, devs = dc.build_sharded_column_call(pd.local_mesh(device),
+                                                use_baq=True)
+        got = fn(*(a[lo:hi] for a in batch))
+        launches = cp.launch_count("tail_probs", card=dev.index)
+        want = dc.build_column_call(use_baq=True, device=dev)(*batch)
+        same = all(torch.equal(got[k], want[k][lo:hi]) for k in dc.STEP_KEYS)
+        with open(out_path, "w") as fh:
+            json.dump({"rank": rank, "backend": str(dist.get_backend()),
+                       "devices": [str(d) for d in devs],
+                       "num_tested": int(got["num_tested"]),
+                       "serial_num_tested": int(want["num_tested"]),
+                       "rows_equal": same, "launches": launches}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_phase(card: str) -> dict:
+    """The multi-card forms, where this host has two cards or more:
+    dryrun_multichip(2) on cuda:0 and cuda:1; two ranks of the sharded
+    step over NCCL, all-reduced num_tested against the serial step's; two
+    ranks of call-distributed (NCCL chosen for them) and a `call` whose
+    screen splits over the local cards, against the host engine."""
+    from lofreq_tpu_torch.call.caller import VarcallConf
+    from lofreq_tpu_torch.entry import dryrun_multichip
+    from lofreq_tpu_torch.ops import cuda_poissbin as cp
+    from lofreq_tpu_torch.parallel import distributed as pd
+    from lofreq_tpu_torch.pipelines.call_pipeline import run_call
+    from lofreq_tpu_torch.testing.simulate_fast import simulate_fast
+
+    out = {"cards": torch.cuda.device_count(), "card": card}
+    check(pd.backend_for("cuda", DIST_RANKS) == "cpu:gloo,cuda:nccl",
+          f"{DIST_RANKS} ranks on {out['cards']} cards do not take NCCL")
+    cp.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        dryrun_multichip(2)
+    except AssertionError as e:
+        fail(f"dryrun_multichip(2): {e}")
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_launches"] = {c: cp.launch_count("tail_probs", card=c)
+                              for c in (0, 1)}
+    check(all(n > 0 for n in out["dryrun_launches"].values()),
+          f"dryrun_multichip(2) launched K1-f32 {out['dryrun_launches']}")
+
+    with tempfile.TemporaryDirectory() as td:
+        port = free_port()
+        paths = [os.path.join(td, f"nccl{r}.json") for r in range(DIST_RANKS)]
+        res = run_procs([[sys.executable, "-c", "import chip_smoke; "
+                          f"chip_smoke.nccl_rank({r}, {port}, {paths[r]!r})"]
+                         for r in range(DIST_RANKS)], "NCCL sharded step")
+        for r, (rc, err) in enumerate(res):
+            check(rc == 0, f"NCCL rank {r} exited {rc}: {err[-2000:]}")
+        ranks = []
+        for path in paths:
+            with open(path) as fh:
+                ranks.append(json.load(fh))
+        for i in ranks:
+            check("nccl" in i["backend"] and i["rows_equal"]
+                  and i["num_tested"] == i["serial_num_tested"] > 0
+                  and i["launches"] == 1
+                  and i["devices"] == [f"cuda:{i['rank']}"],
+                  f"NCCL sharded step, rank {i['rank']}: {i}")
+        out["sharded_ranks"] = ranks
+
+        art = simulate_fast(td, genome_len=NCCL_GENOME, depth=DEPTH,
+                            seed=SEED)
+        host = run_call(art["bam"], art["fa"],
+                        vconf=VarcallConf(use_device_screen=False))
+        cp.reset_launch_count()
+        split = run_call(art["bam"], art["fa"],
+                         vconf=VarcallConf(use_device_screen=True))
+        per_card = {c: cp.launch_count("screen_codes", card=c)
+                    for c in range(len(pd.local_mesh("cuda")))}
+        check(records(split) == records(host) and split.stats.num_snv_tests
+              == host.stats.num_snv_tests, "call with the screen split over "
+              "the cards differs from the host engine")
+        check(len(per_card) >= 2 and all(n > 0 for n in per_card.values()),
+              f"the split screen's launches per card {per_card}")
+        out["call_split_launches"] = per_card
+        single = single_vcf(art, host, td)
+        path = os.path.join(td, "nccl.vcf")
+        port = free_port()
+        started, res = run_ranks(td, "nccl_call", lambda r: [
+            "call-distributed", "--num-processes", str(DIST_RANKS),
+            "--process-id", str(r), "--coordinator", f"127.0.0.1:{port}",
+            "-f", art["fa"], "-o", path, art["bam"]])
+        for r, (rc, err, info) in enumerate(res):
+            check(rc == 0 and info["counts"]["screen_codes"] > 0,
+                  f"NCCL call-distributed rank {r}: exit {rc}, {info}: "
+                  f"{err[-2000:]}")
+        check(_vcf_body(path) == _vcf_body(single), "NCCL call-distributed's "
+              "VCF differs from the host engine's records through the same "
+              "filter")
+        out["call_distributed"] = {
+            "genome": NCCL_GENOME, "records": len(host.vars),
+            "rank_counts": [i["counts"] for _, _, i in res],
+            "rank_ready_s": [i["ready_at"] - started for _, _, i in res]}
+    say("nccl", json.dumps(out))
+    return out
+
+
+def multi_card() -> int:
+    """The multi-card forms alone (nccl_phase), on a host with two cards or
+    more:  python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.multi_card())'"""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("the multi-card forms need two CUDA cards")
+    sys.path.insert(0, REPO)
+    card = card_line()
+    say("card", f"{card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    nccl_phase(card)
+    return 0
 
 
 def main() -> int:
@@ -1339,10 +1690,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     viterbi_phase(card)
-    call_parallel_phase(art, want, call_median, td, reset_counts, cp, card)
+    single = single_vcf(art, want, td)
+    call_parallel_phase(art, want, call_median, td, single, reset_counts, cp,
+                        card)
     somatic_phase(td, reset_counts, cp, card)
-    work.cleanup()
     say("phases", f"12-14 took {time.perf_counter() - t0:.1f} s; chip_smoke "
+        f"{time.perf_counter() - started:.1f} s so far")
+
+    t0 = time.perf_counter()
+    distributed_phase(art, want, call_median, td, single, reset_counts, cp,
+                      card)
+    work.cleanup()
+    sharded_phase(cp, dc, screen, batches, reset_counts, card)
+    if torch.cuda.device_count() >= 2:
+        nccl_phase(card)
+    else:
+        say("nccl", f"not run: the NCCL forms need two cards and this host "
+            f"has {torch.cuda.device_count()}; phases 15 and 16 ran two "
+            "ranks and two shards on one card, over Gloo")
+    say("phases", f"15-16 took {time.perf_counter() - t0:.1f} s; chip_smoke "
         f"{time.perf_counter() - started:.1f} s so far")
 
     foreign = sorted(m for m in sys.modules

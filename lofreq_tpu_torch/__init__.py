@@ -8,7 +8,8 @@ with the reference's bodies, and rewrites the modules that reach the
 device: the Poisson-binomial screen and the device-BAQ runner (ops/), the
 device column step and its fused kernel (ops/device_call.py,
 ops/fused_call.py, entry.py), the caller's conf and screen dispatch
-(call/), the `call` pipeline (pipelines/) and the CLI.  Its device engines
+(call/), the `call` pipeline (pipelines/), the layer across processes and
+cards on torch.distributed (parallel/) and the CLI.  Its device engines
 run on the CUDA card unless the caller names the CPU.
 """
 

@@ -1,15 +1,17 @@
 """Command-line interface: `python -m lofreq_tpu_torch.cli <command> ...`
 
-Counterpart of lofreq_tpu/cli.py, with its subcommands and arguments:
-call, call-parallel, filter, uniq, vcfset, viterbi, alnqual, indelqual,
-somatic, checkref, faidx, index, sort, idxstats, plpsummary, the tools
-(indel-ovlp, add-fake-gt/add-sample, cluster, alt-allele-in-normal,
-analyze-somatic-fn, bias, vcfplot) and version; all but call-distributed.
---profile writes a torch.profiler trace; --device-baq runs the device-BAQ
-screening engine (the BAQ HMM kernels K3/K4).  --device names where the
-device engines run: the CUDA card (default), or the CPU with the kernels'
-plain PyTorch versions, for tests.  call-parallel starts its workers by
-spawn when they use the card (pipelines/parallel_call.py).
+Counterpart of lofreq_tpu/cli.py, with all its subcommands and
+arguments: call, call-parallel, call-distributed, filter, uniq, vcfset,
+viterbi, alnqual, indelqual, somatic, checkref, faidx, index, sort,
+idxstats, plpsummary, the tools (indel-ovlp, add-fake-gt/add-sample,
+cluster, alt-allele-in-normal, analyze-somatic-fn, bias, vcfplot) and
+version.  --profile writes a torch.profiler trace; --device-baq runs the
+device-BAQ screening engine (the BAQ HMM kernels K3/K4).  --device names
+where the device engines run: the CUDA card (default), or the CPU with the
+kernels' plain PyTorch versions, for tests.  call-parallel starts its
+workers by spawn when they use the card (pipelines/parallel_call.py);
+call-distributed runs one process per --process-id over torch.distributed
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -582,6 +584,15 @@ def build_parser():
     p.add_argument("--pp-dry-run", action="store_true")
     add_call_args(p)
 
+    p = sub.add_parser("call-distributed",
+                       help="multi-host region-parallel call over "
+                            "torch.distributed")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--threads-per-host", type=int, default=1)
+    add_call_args(p)
+
     p = sub.add_parser("somatic", help="tumor-normal somatic calling")
     p.add_argument("-t", "--tumor", required=True)
     p.add_argument("-n", "--normal", required=True)
@@ -696,6 +707,10 @@ def _main(argv=None) -> int:
         args.plp_summary_only = True
     if args.cmd in ("call", "plpsummary"):
         return cmd_call(args)
+    if args.cmd == "call-distributed":
+        from .parallel.distributed import run_call_distributed
+
+        return run_call_distributed(args, [])
     if args.cmd == "call-parallel":
         return cmd_call_parallel(args, [])
     if args.cmd == "filter":

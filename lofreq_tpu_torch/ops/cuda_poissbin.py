@@ -17,8 +17,8 @@ from one to the other.
   column step's DP (ops/device_call.py).  `poissbin_tail` is the
   counterpart of pallas_poissbin.poissbin_tail_pallas on top of it.
 
-Each entry counts its own launches (launch_count); `tail_probs` also
-counts the layout copies it makes (layout_copy_count).
+Each entry counts its own launches, in all and per card (launch_count);
+`tail_probs` also counts the layout copies it makes (layout_copy_count).
 """
 
 from __future__ import annotations
@@ -35,14 +35,18 @@ S_ALIGN = 16     # the kernel reads each row as 16-byte vectors
 
 _count_lock = threading.Lock()
 _launches = {"screen_codes": 0, "tail_probs": 0}
+_card_launches = {}   # (entry, card index) -> launches
 _layout_copies = [0]
 
 
-def launch_count(entry: str = "screen_codes") -> int:
+def launch_count(entry: str = "screen_codes", card: int = None) -> int:
     """Kernel launches by the entry `entry` ("screen_codes" or
-    "tail_probs") since the last reset."""
+    "tail_probs") since the last reset: on every card, or on card index
+    `card`."""
     with _count_lock:
-        return _launches[entry]
+        if card is None:
+            return _launches[entry]
+        return _card_launches.get((entry, card), 0)
 
 
 def layout_copy_count() -> int:
@@ -57,12 +61,15 @@ def reset_launch_count() -> None:
     with _count_lock:
         for k in _launches:
             _launches[k] = 0
+        _card_launches.clear()
         _layout_copies[0] = 0
 
 
-def _count(entry: str) -> None:
+def _count(entry: str, card: int) -> None:
     with _count_lock:
         _launches[entry] += 1
+        _card_launches[(entry, card)] = _card_launches.get((entry, card),
+                                                           0) + 1
 
 
 def decode_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -153,7 +160,7 @@ def screen_codes(codes: torch.Tensor, ks: torch.Tensor,
     if err:
         raise RuntimeError("screen_codes kernel launch failed: "
                            + lib.lfq_cuda_error_string(err).decode())
-    _count("screen_codes")
+    _count("screen_codes", codes.device.index)
     return tail, mask
 
 
@@ -222,7 +229,7 @@ def tail_probs(probs: torch.Tensor, kc: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError("tail_probs kernel launch failed: "
                            + lib.lfq_cuda_error_string(err).decode())
-    _count("tail_probs")
+    _count("tail_probs", probs.device.index)
     return out
 
 

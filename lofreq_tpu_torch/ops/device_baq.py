@@ -125,12 +125,14 @@ def extract_baq_torch(q, st, diag0, ext: bool = True) -> torch.Tensor:
 
 
 class DeviceBaqRunner:
-    """Runs the device-BAQ step for the ingest windows on one device.
-    Use get_runner(); the runner keeps only the q2p table on its device."""
+    """Runs the device-BAQ step for the ingest windows on one device:
+    "cuda" (the default) runs K3/K4 and raises without a card, "cpu" the
+    plain HMM, for tests.  Use get_runner(); the runner keeps only the q2p
+    table on its device."""
 
-    def __init__(self, ext_baq: bool = True, device="cpu"):
+    def __init__(self, ext_baq: bool = True, device="cuda"):
         self.ext_baq = ext_baq
-        self.device = torch.device(device)
+        self.device = engine_device(device)
         self.tile = TILE_B if self.device.type == "cuda" else TILE_B_CPU
         self._q2p = torch.from_numpy(_Q2P).to(self.device)
 

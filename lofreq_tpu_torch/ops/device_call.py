@@ -13,8 +13,15 @@ Steps 1 and 2, the alt ids and the prefix selection are plain torch ops,
 as the JAX package leaves them to XLA.  The DP is K1's f32 entry,
 ops/cuda_poissbin.py:tail_probs: the kernel on a CUDA tensor, its plain
 version (tail_torch) on a CPU tensor.  The reference's use_pallas switch
-is gone: the device decides.  The sharded step (build_sharded_column_call)
-needs torch.distributed and is not ported yet.
+is gone: the device decides.
+
+Multi-card: build_sharded_column_call splits the columns into contiguous
+blocks over a list of devices (by default the cards this process drives,
+parallel/distributed.py:local_mesh) and runs the step on each; the only
+reduction is the tested-column count, summed over the blocks and
+all-reduced over the torch.distributed process group, the reference's psum
+(the global dynamic-Bonferroni reduction of the reference's parallel
+wrapper, lofreq2_call_pparallel.py:131-161).
 """
 
 from __future__ import annotations
@@ -151,3 +158,46 @@ def build_column_call(min_bq=D.DEFAULT_MIN_BQ, min_alt_bq=D.DEFAULT_MIN_ALT_BQ,
                               tail_val, sig, bonf_base)
 
     return column_call
+
+
+STEP_KEYS = ("alt_counts", "alt_raw", "alt_nt", "depths", "tested",
+             "candidate", "screen_tail")
+
+
+def build_sharded_column_call(devices=None, **kw):
+    """(fn, devices): the column step with its columns split into
+    contiguous blocks over `devices` (default: local_mesh("cuda"), the
+    cards this process drives; one device may be listed more than once).
+    fn takes the step's tensors, on any one device, copies each block to
+    its device, issues every block's step before waiting for any, and
+    returns the step's dict on the inputs' device with the per-column
+    outputs in column order.  num_tested is the blocks' sum, all-reduced
+    over the process group when one of several ranks is initialised.  A
+    pad column (no valid read) is never tested, so padding changes no
+    output of the real columns.  kw as build_column_call, which builds
+    each device's step (and raises for a card on a host without one)."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import column_blocks, local_mesh, world
+
+    devices = [torch.device(d) for d in
+               (local_mesh("cuda") if devices is None else devices)]
+    if not devices:
+        raise ValueError("build_sharded_column_call needs a device")
+    steps = {d: build_column_call(device=d, **kw) for d in set(devices)}
+
+    def sharded(*args):
+        out_dev = args[0].device
+        blocks = [tuple(a[lo:hi].to(d) for a in args) for d, (lo, hi) in
+                  zip(devices, column_blocks(args[0].shape[0],
+                                             len(devices)))]
+        outs = [steps[d](*blk) for d, blk in zip(devices, blocks)]
+        out = {k: torch.cat([o[k].to(out_dev) for o in outs])
+               for k in STEP_KEYS}
+        num_tested = sum(o["num_tested"].to(out_dev) for o in outs)
+        if world()[1] > 1:
+            dist.all_reduce(num_tested)
+        out["num_tested"] = num_tested.to(torch.int32)
+        return out
+
+    return sharded, devices

@@ -9,10 +9,17 @@ output is identical to running the exact DP everywhere.
 
 The numpy and C helpers of the host side (prescreen_codes,
 screen_codes_for, host_screen_tail, host_screen_tail_codes) keep the
-reference's bodies.  The reference's compile ladder,
-deadlines, mode memo files, link probe and device mesh existed only for a
-remotely compiled TPU and have no counterpart: on CUDA tensors a dispatch
-always launches the kernel.
+reference's bodies.  The reference's compile ladder, deadlines, mode memo
+files and link probe existed only for a remotely compiled TPU and have no
+counterpart: on CUDA tensors a dispatch always launches the kernel.
+
+Multi-card: the reference shards the screen's columns over a mesh of every
+local chip (its _local_mesh and _build_screen_fn(mesh=...)).  Here, when
+the device is the unindexed "cuda" and the process drives more than one
+card (parallel/distributed.py:local_mesh), a dispatch splits its columns
+into contiguous blocks, launches the kernel on each card and gathers the
+masks in column order (screen_split).  The mask is per column, so no
+collective is needed.  On one card a dispatch is one copy and one launch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel.distributed import column_blocks, local_mesh
 from .cuda_poissbin import CODE_PAD, S_ALIGN, screen_codes
 
 # max probs shipped/scanned per column: deep columns are screened from
@@ -93,12 +101,30 @@ def _issue(codes, ks, bonf, sig, device) -> torch.Tensor:
     # threshold in f64, then rounded to f32, as the reference does
     log_thresh = np.log(sig * MARGIN / bonf).astype(np.float32)
     dev = torch.device(device)
+    cards = local_mesh(dev)
     with _stats_lock:
         DISPATCH_STATS["dispatched"] += 1
         DISPATCH_STATS["columns"] += B
+    if len(cards) > 1:
+        return screen_split(codes, ks, log_thresh, cards)
     return screen_codes(torch.from_numpy(np.ascontiguousarray(codes)).to(dev),
                         torch.from_numpy(ks).to(dev),
                         torch.from_numpy(log_thresh).to(dev))[1]
+
+
+def screen_split(codes, ks, log_thresh, devices) -> torch.Tensor:
+    """The candidate mask [B] bool of u8 codes [B, S], int32 ks [B] and
+    f32 log_thresh [B] (numpy), with the columns split into contiguous
+    blocks over `devices` (one device may be listed more than once): one
+    screen_codes per block, on its device, all issued before the masks
+    are gathered, in column order, on devices[0]."""
+    masks = []
+    for d, (lo, hi) in zip(devices, column_blocks(codes.shape[0],
+                                                  len(devices))):
+        block = (torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(d)
+                 for a in (codes, ks, log_thresh))
+        masks.append(screen_codes(*block)[1])
+    return torch.cat([m.to(devices[0]) for m in masks])
 
 
 def screen_dispatch(probs, depths, ks, bonf, sig, device) -> torch.Tensor:

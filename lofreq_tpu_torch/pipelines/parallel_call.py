@@ -79,6 +79,14 @@ def reset_parallel_stats() -> None:
         POOL_STATS.update(start_method=None, ready_s=[])
 
 
+def add_dispatch_stats(counts: dict) -> None:
+    """Add a job's (or a process's) dispatches and launches, as _worker
+    returns them, to PARALLEL_DISPATCH_STATS."""
+    with _stats_lock:
+        for k, v in counts.items():
+            PARALLEL_DISPATCH_STATS[k] += v
+
+
 def bins_from_bamheader(bam_path):
     """[(chrom, start, end)] per chromosome with mapped reads
     (bins_from_bamheader, lofreq2_call_pparallel.py:270-299)."""
@@ -246,9 +254,7 @@ def run_parallel_regions(bam_path, ref_path, vconf_kw, pconf_kw, threads,
         lines.extend(ls)
         n_snv += s
         n_indel += i
-        with _stats_lock:
-            for k, v in counts.items():
-                PARALLEL_DISPATCH_STATS[k] += v
+        add_dispatch_stats(counts)
         if ready_at is not None:
             ready_s.append(ready_at - t0)
     POOL_STATS.update(start_method=method, ready_s=ready_s)

@@ -459,6 +459,23 @@ def test_runner_cpu_matches_reference_runner(extracted, ext):
         -len(codes) // device_baq.TILE_B_CPU)
 
 
+def test_runner_defaults_to_the_card(extracted, monkeypatch):
+    """DeviceBaqRunner() names the card: on a host without one it raises,
+    naming --device cpu, instead of running on the CPU; asked for the CPU
+    it gives the reference runner's BAQ (the case above, ext_baq on)."""
+    from lofreq_tpu.ops.device_baq import DeviceBaqRunner as RefRunner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        device_baq.DeviceBaqRunner()
+    ref, (codes, quals, pos, xb, xe) = extracted
+    got = device_baq.DeviceBaqRunner(device="cpu").run(ref, codes, quals,
+                                                        pos, xb, xe)
+    want = RefRunner().run(ref, codes, quals, pos, xb, xe)
+    diff = np.abs(got.astype(np.int64) - want)
+    assert (diff <= 1).mean() >= SHARE and (diff == 0).mean() >= 0.99
+
+
 def test_count_extracted_reads(sim_bam):
     """The extraction counter sees every eligible read that the port's
     lfq_extract_reads flags, and leaves the library as it found it."""

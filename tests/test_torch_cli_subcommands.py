@@ -153,15 +153,25 @@ def test_version(capsys):
 
 
 def test_every_reference_subcommand_but_call_distributed():
+    """Every subcommand of the reference's CLI, call-distributed too (the
+    name dates from before the port had it), and call-distributed with
+    the reference's options plus the port's --device, as call has."""
     from lofreq_tpu.cli import build_parser as ref_parser
 
-    def subcommands(ap):
-        sub = next(a for a in ap._actions if a.dest == "cmd")
-        return set(sub.choices)
+    def subparsers(ap):
+        return next(a for a in ap._actions if a.dest == "cmd").choices
 
-    ref = subcommands(ref_parser())
-    assert subcommands(build_parser()) == ref - {"call-distributed"}
+    def options(p):
+        return {s for a in p._actions for s in a.option_strings}
+
+    ref = subparsers(ref_parser())
+    port = subparsers(build_parser())
+    assert set(port) == set(ref)
     assert len(ref) == 25
+    for cmd in ("call", "call-distributed"):
+        assert options(port[cmd]) == options(ref[cmd]) | {"--device"}, cmd
+    assert {"--num-processes", "--process-id", "--coordinator",
+            "--threads-per-host"} <= options(port["call-distributed"])
 
 
 @pytest.mark.parametrize("cmd", ["faidx", "index", "idxstats", "checkref",

@@ -130,6 +130,35 @@ def test_port_subcommands_import_no_jax(tmp_path):
     assert (tmp_path / "v.bam").exists() and (tmp_path / "i.vcf").exists()
 
 
+def test_port_call_distributed_imports_no_jax(tmp_path):
+    """call-distributed (one process, the screen's plain version) through
+    the port's CLI and the dry run on two CPU shards in a fresh process:
+    no jax, jaxlib or lofreq_tpu module is loaded."""
+    art = simulate_fast(str(tmp_path), genome_len=5_000, depth=100, seed=5)
+    out = tmp_path / "d.vcf"
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from lofreq_tpu_torch.cli import main\n"
+        "from lofreq_tpu_torch.entry import dryrun_multichip\n"
+        "from lofreq_tpu_torch.ops.screen import DISPATCH_STATS\n"
+        f"rc = main(['call-distributed', '--device-screen', '--device', "
+        f"'cpu', '-f', {art['fa']!r}, '-o', {str(out)!r}, "
+        f"{art['bam']!r}])\n"
+        "dryrun_multichip(2, device='cpu')\n"
+        + FOREIGN +
+        "print('RC', rc, 'DISPATCHED', DISPATCH_STATS['dispatched'], "
+        "'FOREIGN', foreign)\n"
+    )
+    last = _run_fresh(code, tmp_path)
+    assert last.startswith("RC 0 DISPATCHED ") and last.endswith(
+        "FOREIGN []"), last
+    assert int(last.split()[3]) > 0
+    assert out.read_text().startswith("##fileformat=VCF")
+
+
 def test_port_sources_import_no_jax():
     """No file of the port, nor chip_smoke.py, imports jax or lofreq_tpu."""
     pats = [re.compile(r"^\s*(import jax|from jax)", re.M),
