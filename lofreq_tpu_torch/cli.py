@@ -134,17 +134,51 @@ def confs_from_args(args):
 
 
 def _profiler(trace_dir):
-    """torch.profiler over the call; the trace (chrome format, viewable in
-    Perfetto or TensorBoard) is written into trace_dir when it stops."""
+    """torch.profiler over the call, on every thread where this torch can;
+    the trace (chrome format, viewable in Perfetto or TensorBoard) is
+    written into trace_dir when it stops, with the tracer's spans
+    (core/stagetimer.py) added on the same timeline."""
     import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    kw = {}
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        kw["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
+    except (ImportError, TypeError):
+        pass  # the profiler records the calling thread's ranges only
     return profile(activities=acts,
-                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+                   on_trace_ready=lambda p: _write_trace(p, trace_dir), **kw)
+
+
+def _write_trace(prof, trace_dir):
+    """The profiler's chrome trace under TensorBoard's file name, with
+    one event per span of the tracer, each carrying its call id, span
+    id, parent, thread CPU and attributes, placed through the tracer's
+    anchor event."""
+    import json
+    import socket
+    import time
+
+    from .core import stagetimer
+
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{socket.gethostname()}_{os.getpid()}."
+                        f"{time.time_ns() // 1_000_000}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)
+    anchor = next((e["ts"] for e in trace["traceEvents"]
+                   if e.get("name") == stagetimer.ANCHOR), None)
+    if anchor is not None:
+        trace["traceEvents"].extend(stagetimer.chrome_events(anchor))
+        with open(path, "w") as fh:
+            json.dump(trace, fh)
 
 
 def cmd_call(args) -> int:

@@ -41,6 +41,7 @@ import threading
 import numpy as np
 import torch
 
+from ..core import stagetimer
 from . import engine_device
 from .baq_torch import _BASECODE, _Q2P
 from .cuda_baq import baq_hmm
@@ -139,7 +140,13 @@ class DeviceBaqRunner:
     def run(self, ref: bytes, codes, quals, pos, xb, xe) -> np.ndarray:
         """codes, quals [N, L] u8 and pos, xb, xe [N] int64 from
         lfq_extract_reads, [xb, xe) each read's reference window.
-        Returns the final BAQ [N, L] u8 (0..93)."""
+        Returns the final BAQ [N, L] u8 (0..93).
+
+        Two stages of the tracer: `devbaq.h2d` around the six copies to
+        the device and `devbaq.d2h` around the copy back, each with the
+        attribute `bytes`, what it hands across (on the CPU, `.to` is no
+        copy).  The copy back waits for K3/K4 and the extraction to
+        finish, so `devbaq.d2h` holds that wait too."""
         N, L = codes.shape
         if N == 0:
             return np.empty((0, L), np.uint8)
@@ -149,19 +156,17 @@ class DeviceBaqRunner:
         # the window's reference codes, shipped once for all batches; its
         # span is the batch's, so no read's window is cut
         base = int(xb.min())
-        refwin = torch.from_numpy(
-            _BASECODE[np.frombuffer(ref, np.uint8)[base:int(xe.max())]]
-        ).to(dev)
         l_ref_np = (xe - xb).astype(np.int32)
         Lr = int(l_ref_np.max())
-        xbrel = torch.from_numpy((xb - base).astype(np.int64)).to(dev)
-        l_ref = torch.from_numpy(l_ref_np).to(dev)
-        diag0 = torch.from_numpy((np.asarray(pos) - xb).astype(np.int32)).to(
-            dev)
-        codes_t = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(
-            dev)
-        quals_t = torch.from_numpy(np.ascontiguousarray(quals, np.uint8)).to(
-            dev)
+        host = (_BASECODE[np.frombuffer(ref, np.uint8)[base:int(xe.max())]],
+                (xb - base).astype(np.int64), l_ref_np,
+                (np.asarray(pos) - xb).astype(np.int32),
+                np.ascontiguousarray(codes, np.uint8),
+                np.ascontiguousarray(quals, np.uint8))
+        with stagetimer.stage("devbaq.h2d"):
+            refwin, xbrel, l_ref, diag0, codes_t, quals_t = (
+                torch.from_numpy(a).to(dev) for a in host)
+            stagetimer.note(bytes=sum(a.nbytes for a in host))
         lane = torch.arange(Lr, device=dev)
         out = torch.empty((N, L), dtype=torch.uint8, device=dev)
         batches = 0
@@ -176,7 +181,9 @@ class DeviceBaqRunner:
             q, st = baq_hmm(refw, codes_t[lo:hi], qualp, lr)
             out[lo:hi] = extract_baq_torch(q, st, diag0[lo:hi], self.ext_baq)
             batches += 1
-        res = out.cpu().numpy()
+        with stagetimer.stage("devbaq.d2h"):
+            res = out.cpu().numpy()
+            stagetimer.note(bytes=res.nbytes)
         with _stats_lock:
             RUN_STATS["reads"] += N
             RUN_STATS["batches"] += batches

@@ -8,11 +8,15 @@ filter chain runs in-process at the end.
 The port's copy of lofreq_tpu/pipelines/call_pipeline.py.  Every body is
 the reference's apart from run_call, whose screening engines run on the
 port's torch device: the device screen (K1) and the device-BAQ runner
-(K3/K4) on VarcallConf.device.
+(K3/K4) on VarcallConf.device, and what the tracer (core/stagetimer.py)
+needs: each call's root span, the stages `call.batch`, `filter` and
+`vcf_write`, and the window builds, raw prefetch and confirms submitted
+under the call's context, so that their spans carry its id.
 """
 
 from __future__ import annotations
 
+import contextvars
 import copy
 import os
 import sys
@@ -328,9 +332,11 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
         return batch
 
     def _submit(w):
+        # under the call's context, so the build's spans carry its id
+        run = contextvars.copy_context().run
         if fused_snv:
-            return ex.submit(_fused_window, w)
-        return ex.submit(ingest_region, rdr, pconf, ref, tid,
+            return ex.submit(run, _fused_window, w)
+        return ex.submit(run, ingest_region, rdr, pconf, ref, tid,
                          beg=max(w, lo), end=min(w + window, hi),
                          ign_pos=ign_arr, device_baq=device_baq,
                          pool=row_pool, keep_raw=keep_raw)
@@ -344,7 +350,8 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
             from collections import deque
 
             windows = list(range(win, hi, window))
-            pf = threading.Thread(target=_prefetcher, args=(windows,),
+            pf = threading.Thread(target=contextvars.copy_context().run,
+                                  args=(_prefetcher, windows),
                                   name="raw-prefetch", daemon=True)
             pf.start()
             futs = deque()
@@ -463,6 +470,7 @@ def _can_use_native(bam_path, ign_pos, pconf) -> bool:
     return True
 
 
+@stagetimer.call()
 def run_call(
     bam_path,
     ref_path,
@@ -479,7 +487,9 @@ def run_call(
     The reference's body (lofreq_tpu/pipelines/call_pipeline.py:run_call),
     with both screening engines: device BAQ when vconf.device_baq_on
     (--device-baq), else host no-BAQ.  vconf must be the port's
-    VarcallConf (VarcallConf.from_reference converts a reference conf)."""
+    VarcallConf (VarcallConf.from_reference converts a reference conf).
+    Alone, it is one call of the tracer (stagetimer.call); its window
+    builds, raw prefetch and confirms run under the call's context."""
     vconf = vconf if vconf is not None else VarcallConf()
     if not isinstance(vconf, VarcallConf):
         raise TypeError("run_call needs lofreq_tpu_torch's VarcallConf; "
@@ -584,11 +594,13 @@ def run_call(
                         rstart, rend, window=WINDOW, vconf=vconf,
                         ign_pos=chrom_ign, device_baq=device_baq,
                         keep_raw=screen_ctx is not None):
-                    vs = call_vars_batch(batch, vconf, res.stats,
-                                         screen_ctx=screen_ctx)
+                    with stagetimer.stage("call.batch"):
+                        vs = call_vars_batch(batch, vconf, res.stats,
+                                             screen_ctx=screen_ctx)
                     fut = None
                     if screen_ctx:
-                        fut = conf_ex.submit(_timed_confirm,
+                        fut = conf_ex.submit(contextvars.copy_context().run,
+                                             _timed_confirm,
                                              list(screen_ctx),
                                              getattr(batch, "raw", None))
                         screen_ctx.clear()
@@ -638,7 +650,8 @@ def run_call(
 
         for batch in _window_batches(prepared_reads(), chrom, ref, pconf,
                                      rstart, rend, window=WINDOW):
-            vs = call_vars_batch(batch, vconf, res.stats)
+            with stagetimer.stage("call.batch"):
+                vs = call_vars_batch(batch, vconf, res.stats)
             res.vars.extend(vs)
             if progress:
                 progress(chrom, int(batch.positions[-1]))
@@ -684,11 +697,12 @@ def default_filter_conf(vconf: VarcallConf, no_default_filter: bool) -> FilterCo
 
 
 def write_vcf(path, vars_, header: str):
-    with VcfWriter(path, header) as w:
+    with stagetimer.stage("vcf_write"), VcfWriter(path, header) as w:
         for v in vars_:
             w.write(v)
 
 
+@stagetimer.call()
 def call_and_filter(
     bam_path, ref_path, out_path, vconf=None, pconf=None,
     no_default_filter=False, src=None, **kw
@@ -699,7 +713,8 @@ def call_and_filter(
     `src` is the ##source= header payload; the CLI passes the full
     command line like the reference (lofreq_call.c:1431-1437 concats
     every argv token plus a trailing space into mplp_conf.cmdline,
-    which vcf_write_header emits verbatim, vcf.c:662)."""
+    which vcf_write_header emits verbatim, vcf.c:662).  One call of the
+    tracer (stagetimer.call), run_call's included."""
     vconf = vconf or VarcallConf()
     res = run_call(bam_path, ref_path, vconf=vconf, pconf=pconf, **kw)
     if src is None:
@@ -711,7 +726,8 @@ def call_and_filter(
         return res
 
     cfg = default_filter_conf(vconf, no_default_filter)
-    header, vars_ = run_filter(header, res.vars, cfg)
+    with stagetimer.stage("filter"):
+        header, vars_ = run_filter(header, res.vars, cfg)
     write_vcf(out_path, vars_, header)
     res.vars = vars_
     return res

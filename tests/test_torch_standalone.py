@@ -29,7 +29,6 @@ VERBATIM = [
     "defaults.py", "native.py",
     "core/__init__.py", "core/phred.py", "core/poissbin.py",
     "core/quals.py", "core/fisher.py", "core/multtest.py",
-    "core/stagetimer.py",
     "io/__init__.py", "io/bgzf.py", "io/bam.py", "io/bai.py", "io/bed.py",
     "io/fasta.py", "io/vcf.py",
     "pileup/__init__.py", "pileup/engine.py", "pileup/sourcequal.py",
