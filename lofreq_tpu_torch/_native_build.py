@@ -97,5 +97,22 @@ def get_native_lib() -> ctypes.CDLL:
                     check=True, capture_output=True,
                 )
                 os.replace(tmp, out)
-            _lib = ctypes.CDLL(out)
+            lib = ctypes.CDLL(out)
+            _fill_baq_tables(lib)
+            _lib = lib
     return _lib
+
+
+def _fill_baq_tables(lib) -> None:
+    """Fill baq.c's lookup tables once, while the load lock is held.
+
+    baq.c builds them at a thread's first BAQ batch without a lock, and
+    its base-code table is not filled idempotently (every entry is set
+    to 4, then A, C, G and T): a second thread's first batch can reset
+    the entries while the first one's readers code every base as N.  The
+    window pipeline's confirm threads start their first batches together.
+    A batch of no reads fills the tables and reads nothing else."""
+    null = ctypes.c_void_p()
+    lib.lfq_baq_batch(null, ctypes.c_int64(0), ctypes.c_int64(0),
+                      *[null] * 8, ctypes.c_int(0), ctypes.c_double(0.0),
+                      ctypes.c_double(0.0), *[null] * 4)

@@ -2012,3 +2012,49 @@ int64_t lfq_ingest_columns(
     prep_free(&pp);
     return C;
 }
+
+/* The records of a coordinate-sorted BAM that a window [beg, end) of tid
+ * needs, as ONE byte range of an inflated span: one walk over the record
+ * headers from `start` (a record boundary: the BAI's linear-index start
+ * for beg) towards `limit` (the end of the window's last chunk, a record
+ * boundary, or past buflen where that lies outside the span).  The range
+ * starts at the first record whose reference end lies past beg and ends
+ * before the first record of another contig or with pos >= end, or at
+ * limit.  Every record overlapping [beg, end) lies inside it, in file
+ * order; the other records in it are ones the consumers' interval filter
+ * drops.  Writes out[0], out[1] (byte offsets into buf; an empty range
+ * has out[0] == out[1]) and returns 0; -1 on a record that does not parse
+ * or crosses limit, -2 on a record of tid out of position order, -3 where
+ * the span ends before the range does.  Callers fall back to the BAI's
+ * chunks on any of them. */
+int64_t lfq_raw_view(const uint8_t *buf, int64_t buflen, int64_t start,
+                     int64_t limit, int32_t tid, int64_t beg, int64_t end,
+                     int64_t *out)
+{
+    int64_t off = start, first = -1, last_pos = INT64_MIN;
+    if (start < 0 || start > buflen)
+        return -1;
+    while (off < limit) {
+        if (off + 4 > buflen)
+            return -3;
+        int32_t sz = *(const int32_t *)(buf + off);
+        if (sz < 32 || off + 4 + sz > limit)
+            return -1;
+        if (off + 4 + sz > buflen)
+            return -3;
+        rec_t r;
+        if (parse_rec(buf + off + 4, sz, &r) != 0)
+            return -1;
+        if (r.tid != tid || r.pos >= end)
+            break;
+        if (r.pos < last_pos)
+            return -2;
+        last_pos = r.pos;
+        if (first < 0 && rec_endpos(&r) > beg)
+            first = off;
+        off += 4 + (int64_t)sz;
+    }
+    out[0] = first < 0 ? off : first;
+    out[1] = off;
+    return 0;
+}

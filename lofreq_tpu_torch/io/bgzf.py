@@ -12,6 +12,7 @@ from __future__ import annotations
 import io
 import os
 import struct
+import threading
 import zlib
 
 _POOL = None
@@ -571,10 +572,14 @@ def _inflate_span_fresh(path, cbeg: int, span_end: int):
 # Entry: dict(mtime, base u8 capacity buffer, beg int offset of the
 # span's first payload byte in base, c_off abs[n+1], u_off rel[n+1]).
 # Guarded by _SPAN_LOCK (pipelined window workers fetch concurrently);
-# extensions serialize on _SPAN_EXTEND and mutate only spare capacity,
-# so handed-out views stay valid.
+# extensions serialize on _SPAN_EXTEND and write only spare capacity or
+# buffers no view pins, so the bytes of a handed-out view are never
+# rewritten.
 _SPAN_CACHE: dict = {}
 _SPAN_FREE: list = []       # retired base buffers awaiting reuse
+_SPAN_PEAK = 0              # the most of them views pinned at one take
+_SPAN_MIN = 8 << 20         # least capacity of a new buffer
+_SPAN_BYTES = threading.local()  # a thread's fresh and moved bytes
 _SPAN_LOCK = None
 _SPAN_EXTEND = None
 
@@ -590,31 +595,69 @@ def _span_cache_lock():
 
 
 def _take_base(need: int):
-    """A u8 buffer of capacity >= need: recycled from _SPAN_FREE when a
-    retired buffer is big enough and no outside views keep it pinned
-    (views of handed-out span slices hold a reference to their base —
-    reusing such a buffer would corrupt live windows), else fresh with
-    2x headroom so the next few extensions append in place."""
-    import sys
-
+    """A u8 buffer of capacity >= need: the smallest retired buffer that
+    is big enough and that no outside view keeps pinned (a handed-out
+    window's view holds a reference to its base until the window dies —
+    reusing such a buffer would rewrite live windows), else fresh with
+    2x headroom so the next few extensions append in place.  Records
+    how many retired buffers were pinned, which _retire_base keeps that
+    many spares for, and counts a fresh buffer in span_bytes()."""
+    global _SPAN_PEAK
     import numpy as np
 
     with _span_cache_lock():
-        for i, arr in enumerate(_SPAN_FREE):
-            # refs when free: the list entry + this loop's `arr` local
-            # + getrefcount's argument == 3
-            if arr.size >= need and sys.getrefcount(arr) <= 3:
-                return _SPAN_FREE.pop(i)
-    return np.empty(max(int(need * 2), 8 << 20), np.uint8)
+        best, pinned = -1, 0
+        for i in range(len(_SPAN_FREE)):
+            if _pinned(i):
+                pinned += 1
+            elif _SPAN_FREE[i].size >= need and (
+                    best < 0 or _SPAN_FREE[i].size < _SPAN_FREE[best].size):
+                best = i
+        _SPAN_PEAK = max(_SPAN_PEAK, pinned)
+        if best >= 0:
+            return _SPAN_FREE.pop(best)
+    size = max(int(need * 2), _SPAN_MIN)
+    _note_span_bytes(fresh=size)
+    return np.empty(size, np.uint8)
 
 
 def _retire_base(arr):
-    """Park a replaced capacity buffer for reuse (newest first, keep 3;
-    pinned buffers age out once their views die)."""
-    if arr is None or arr.size < (4 << 20):
+    """Park a replaced capacity buffer for reuse (newest first).  Every
+    pinned buffer stays (live views hold its memory anyway, and it is
+    free again once they die); of the free ones, the oldest go past
+    the most buffers ever pinned at one take plus one: as many as a
+    pipeline of the same depth takes again."""
+    if arr is None:
         return
     _SPAN_FREE.insert(0, arr)
-    del _SPAN_FREE[3:]
+    del arr
+    for i in reversed(range(len(_SPAN_FREE))):
+        if len(_SPAN_FREE) <= _SPAN_PEAK + 1:
+            break
+        if not _pinned(i):
+            del _SPAN_FREE[i]
+
+
+def _pinned(i: int) -> bool:
+    """Whether anything but _SPAN_FREE holds retired buffer i: a view of
+    it that is still alive (refs when free: the list entry +
+    getrefcount's argument == 2)."""
+    import sys
+
+    return sys.getrefcount(_SPAN_FREE[i]) > 2
+
+
+def _note_span_bytes(fresh: int = 0, moved: int = 0) -> None:
+    _SPAN_BYTES.fresh = getattr(_SPAN_BYTES, "fresh", 0) + fresh
+    _SPAN_BYTES.moved = getattr(_SPAN_BYTES, "moved", 0) + moved
+
+
+def span_bytes() -> tuple:
+    """The calling thread's running totals (fresh, moved): bytes of span
+    buffers newly allocated, and bytes of live span moved from a full
+    buffer into another one."""
+    return (getattr(_SPAN_BYTES, "fresh", 0),
+            getattr(_SPAN_BYTES, "moved", 0))
 
 
 def _span_slices(ent, i0: int, i1: int):
@@ -723,6 +766,7 @@ def _inflate_span(path, cbeg: int, span_end: int):
             keep = live - int(uo[i0])
             base2 = _take_base(keep + t_total)
             base2[:keep] = base[beg + uo[i0]:beg + live]
+            _note_span_bytes(moved=keep)
             dst = base2[keep:keep + t_total]
             if not _inflate_into(lib, buf, t_co, t_cs, t_uo, dst):
                 return None
@@ -739,30 +783,16 @@ def _inflate_span(path, cbeg: int, span_end: int):
         return _span_slices(ent2, j0, len(co2) - 1)
 
 
-def native_extract_multi(path, chunks, inflate_hint=None) -> bytes | None:
-    """Concatenated payloads of several [vbeg, vend) chunk ranges.
-
-    The BAI's per-window chunk lists are one near-contiguous run (the
-    window's reads) plus a few far-flung outlier chunks from coarse
-    bins.  Chunks are clustered by compressed-offset gap: big clusters
-    inflate as ONE span through the sequential last-span cache (so
-    consecutive windows extend it), while small/outlier clusters
-    inflate directly WITHOUT touching the cache — a 100 KB stray chunk
-    must not evict the 15 MB window span the next window will extend
-    (observed: exactly that eviction forced full re-inflation of every
-    window).  Returns None on any parse anomaly (callers fall back).
-
-    inflate_hint: a virtual offset a few windows AHEAD — the largest
-    cluster's inflation span extends to it, so the NEXT windows' fetches
-    land fully inside the cached span and become pure zero-copy slices
-    (no inflate, no concat).  Only inflation extends; returned payloads
-    still cover exactly the requested chunks."""
-    import numpy as np
-
-    if not chunks or _native_lib() is None:
-        return None
+def _plan(path, chunks, inflate_hint):
+    """How native_extract_multi inflates chunks: (spans, clusters,
+    biggest, main_end) — per chunk (cb, ub, ce, ue, end_byte), the
+    chunks clustered by compressed-offset gap as (beg, end, [chunk
+    indices]) in offset order, the index of the biggest cluster, and
+    the file byte its inflation extends to: the end of inflate_hint's
+    block where that lies past the cluster's end and at most 64 MiB
+    on, else the cluster's end.  None where a block header does not
+    parse."""
     GAP = 1 << 20       # new cluster when compressed gap > 1 MiB
-    CACHE_MIN = 4 << 20  # only spans >= 4 MiB go through the cache
     try:
         with open(path, "rb") as fh:
             spans = []  # per chunk: (cb, ub, ce, ue, end_byte)
@@ -808,16 +838,46 @@ def native_extract_multi(path, chunks, inflate_hint=None) -> bytes | None:
     biggest = max(range(len(clusters)),
                   key=lambda i: clusters[i][1] - clusters[i][0]) \
         if clusters else -1
+    main_end = clusters[biggest][1]
+    if hint_end is not None and main_end < hint_end <= main_end + (64 << 20):
+        main_end = hint_end
+    return spans, clusters, biggest, main_end
+
+
+def native_extract_multi(path, chunks, inflate_hint=None) -> bytes | None:
+    """Concatenated payloads of several [vbeg, vend) chunk ranges.
+
+    The BAI's per-window chunk lists are one near-contiguous run (the
+    window's reads) plus a few far-flung outlier chunks from coarse
+    bins.  Chunks are clustered by compressed-offset gap: big clusters
+    inflate as ONE span through the sequential last-span cache (so
+    consecutive windows extend it), while small/outlier clusters
+    inflate directly WITHOUT touching the cache — a 100 KB stray chunk
+    must not evict the 15 MB window span the next window will extend
+    (observed: exactly that eviction forced full re-inflation of every
+    window).  Returns None on any parse anomaly (callers fall back).
+
+    inflate_hint: a virtual offset a few windows AHEAD — the largest
+    cluster's inflation span extends to it, so the NEXT windows' fetches
+    land fully inside the cached span and become pure zero-copy slices
+    (no inflate, no concat).  Only inflation extends; returned payloads
+    still cover exactly the requested chunks."""
+    import numpy as np
+
+    if not chunks or _native_lib() is None:
+        return None
+    CACHE_MIN = 4 << 20  # only spans >= 4 MiB go through the cache
+    plan = _plan(path, chunks, inflate_hint)
+    if plan is None:
+        return None
+    spans, clusters, biggest, main_end = plan
     parts = [None] * len(spans)
     for ci_, (beg, end, idxs) in enumerate(clusters):
         if end <= beg:
             for i in idxs:
                 parts[i] = b""
             continue
-        infl_end = end
-        if (ci_ == biggest and hint_end is not None
-                and end < hint_end <= end + (64 << 20)):
-            infl_end = hint_end
+        infl_end = main_end if ci_ == biggest else end
         if infl_end - beg >= CACHE_MIN:
             res = _inflate_span(path, beg, infl_end)
         else:
@@ -901,3 +961,39 @@ def native_extract_voffsets(path, vbeg: int, vend=None) -> bytes | None:
     if ubeg > end_u:
         return None
     return out[ubeg:end_u].tobytes()
+
+
+def native_window_span(path, chunks, inflate_hint=None):
+    """The span that native_extract_multi inflates through the span cache
+    for the chunks' biggest cluster (a window's own records), where that
+    cluster is also the first one, which holds the lowest chunk (the
+    BAI's linear-index start): (payload, abs c_off[n+1], rel u_off[n+1])
+    as _inflate_span returns them, or None.  The far chunks of coarse
+    bins are not inflated."""
+    if not chunks or _native_lib() is None:
+        return None
+    plan = _plan(path, chunks, inflate_hint)
+    if plan is None:
+        return None
+    _spans, clusters, biggest, main_end = plan
+    beg, end, _idxs = clusters[biggest]
+    if biggest != 0 or end <= beg:
+        return None
+    return _inflate_span(path, beg, main_end)
+
+
+def span_offset(c_off, u_off, voff: int):
+    """The payload offset of virtual offset voff in a span of blocks
+    c_off (absolute, with the end sentinel) and u_off, or None where
+    voff lies outside it."""
+    import numpy as np
+
+    c, u = voff >> 16, voff & 0xFFFF
+    i = int(np.searchsorted(c_off, c))
+    if i >= len(c_off) or c_off[i] != c:
+        return None
+    if i == len(c_off) - 1:
+        return int(u_off[i]) if u == 0 else None
+    if u > int(u_off[i + 1]) - int(u_off[i]):
+        return None
+    return int(u_off[i]) + u

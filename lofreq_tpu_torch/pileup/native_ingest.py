@@ -175,12 +175,85 @@ def _conf_struct(conf: PileupConf, tid: int, beg, end,
     return cs
 
 
-def raw_records_for_region(rdr: BamReader, tid, beg, end) -> bytes:
-    """Raw [size][record] bytes covering the region, via the BAI when
-    present (whole remaining stream otherwise).
+_BAI_CACHE: dict = {}   # .bai path -> ((mtime_ns, size), BaiIndex)
 
-    Fast path: the native multithreaded BGZF inflater (csrc/bgzf.c via
-    io.bgzf.native_extract_voffsets) — the per-window data-loading
+
+def _load_bai(bai_path) -> BaiIndex:
+    """The BAI at bai_path, loaded once per mtime and size."""
+    st = os.stat(bai_path)
+    stamp = (st.st_mtime_ns, st.st_size)
+    ent = _BAI_CACHE.get(bai_path)
+    if ent is None or ent[0] != stamp:
+        ent = (stamp, BaiIndex.load(bai_path))
+        _BAI_CACHE[bai_path] = ent
+        while len(_BAI_CACHE) > 8:
+            _BAI_CACHE.pop(next(iter(_BAI_CACHE)))
+    return ent[1]
+
+
+def raw_records_for_region(rdr: BamReader, tid, beg, end):
+    """Raw [size][record] bytes covering the region, via the BAI when
+    present (whole remaining stream otherwise): a read-only memoryview
+    of the inflated span where the window's records are one range of it
+    (raw_view), else bytes, the chunks' payloads joined.
+
+    Inside a traced `ingest.raw` span it notes `bytes` (handed out),
+    `copied` (bytes copied to form them: a fallback's bytes, and span
+    moved out of a full buffer) and `fresh` (bytes of span buffers newly
+    allocated)."""
+    from ..core import stagetimer
+    from ..io.bgzf import span_bytes
+
+    fresh0, moved0 = span_bytes()
+    raw = _raw_records(rdr, tid, beg, end)
+    fresh, moved = span_bytes()
+    copied = moved - moved0 + (len(raw) if isinstance(raw, bytes) else 0)
+    stagetimer.note(bytes=len(raw), copied=copied, fresh=fresh - fresh0)
+    return raw
+
+
+def raw_view(path, chunks, inflate_hint, tid: int, beg: int, end: int):
+    """The records a window [beg, end) of tid needs as one read-only view
+    of the span cache, nothing copied: chunks are the BAI's for the
+    window, whose span is inflated as the chunked path inflates it
+    (io.bgzf.native_window_span).  None where that does not hold: no
+    chunks, a parse anomaly or a record out of order (csrc/ingest.c:
+    lfq_raw_view), or records past the inflated span.  Every record
+    overlapping [beg, end) lies in the view, in file order; the others
+    are ones every consumer's interval filter drops, so the consumers
+    keep what they keep from the chunks' payloads joined."""
+    from ..io.bgzf import native_window_span, span_offset
+
+    got = native_window_span(path, chunks, inflate_hint)
+    if got is None:
+        return None
+    payload, c_off, u_off = got
+    start = span_offset(c_off, u_off, chunks[0][0])
+    if start is None:
+        return None
+    limit = span_offset(c_off, u_off, max(c[1] for c in chunks))
+    if limit is None:       # the chunks end past the span
+        limit = np.iinfo(np.int64).max
+    lib = get_lib()
+    lib.lfq_raw_view.restype = ctypes.c_int64
+    out = np.zeros(2, np.int64)
+    rc = lib.lfq_raw_view(
+        payload.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(len(payload)), ctypes.c_int64(start),
+        ctypes.c_int64(limit), ctypes.c_int32(tid), ctypes.c_int64(beg),
+        ctypes.c_int64(end),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if rc != 0:
+        return None
+    return memoryview(payload[int(out[0]):int(out[1])]).toreadonly()
+
+
+def _raw_records(rdr: BamReader, tid, beg, end):
+    """raw_records_for_region's records: the view where raw_view serves
+    one, else the chunked path.
+
+    Chunked path: the native multithreaded BGZF inflater (csrc/bgzf.c
+    via io.bgzf.native_extract_multi) — the per-window data-loading
     bottleneck lives here, so blocks inflate on a pthread pool instead
     of Python's per-block zlib loop.  Any parse anomaly falls back to
     the Python BgzfReader (identical output, slower)."""
@@ -188,8 +261,9 @@ def raw_records_for_region(rdr: BamReader, tid, beg, end) -> bytes:
 
     bai_path = rdr.path + ".bai"
     if tid is not None and os.path.exists(bai_path):
-        idx = BaiIndex.load(bai_path)
-        chunks = idx.query(tid, beg or 0, end if end else 1 << 29)
+        idx = _load_bai(bai_path)
+        b, e = beg or 0, end if end else 1 << 29
+        chunks = idx.query(tid, b, e)
         # inflate ~2 windows ahead so the next sequential fetches land
         # fully inside the cached span (pure zero-copy slices)
         hint = None
@@ -197,6 +271,9 @@ def raw_records_for_region(rdr: BamReader, tid, beg, end) -> bytes:
             ahead = idx.query(tid, end, end + 2 * (end - beg))
             if ahead:
                 hint = max(c[1] for c in ahead)
+        view = raw_view(rdr.path, chunks, hint, tid, b, e)
+        if view is not None:
+            return view
         merged = native_extract_multi(rdr.path, chunks, inflate_hint=hint)
         if merged is not None:
             return merged
