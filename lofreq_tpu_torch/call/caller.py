@@ -739,6 +739,16 @@ def _topk_prescreen(probs, ks, bonf, sig) -> np.ndarray:
     return ~discard
 
 
+def dp_cells(n_done, ks) -> int:
+    """DP cells the native DP evaluated: a row of tail K that ran n_done
+    reads updates min(n, K) + 1 cells at its n-th read, so
+    sum over rows of sum_{n=1..n_done} (min(n, K) + 1)."""
+    m = np.asarray(n_done, dtype=np.int64)
+    k = np.asarray(ks, dtype=np.int64)
+    j = np.minimum(m, k)
+    return int((j * (j + 1) // 2 + j + (m - j) * (k + 1)).sum())
+
+
 def _snpcaller_with_screen(probs, depths, alt_counts, bonf, conf: VarcallConf,
                            presorted=True, precomputed_mask=None):
     """snpcaller over packed columns, candidate-filtered first.
@@ -778,10 +788,12 @@ def _snpcaller_with_screen(probs, depths, alt_counts, bonf, conf: VarcallConf,
 
         with stagetimer.stage("pack_sort"):
             native.sort_errprobs_batch(sub, depths[idx])
-    with stagetimer.stage("exact_dp"):
-        state, _ = pruned_prob_dist_batch(sub, depths[idx], ks[idx],
-                                          bonf[idx], conf.sig)
     sub_ks = ks[idx]
+    with stagetimer.stage("exact_dp"):
+        state, n_done = pruned_prob_dist_batch(sub, depths[idx], sub_ks,
+                                               bonf[idx], conf.sig)
+        if stagetimer.tracing():
+            stagetimer.note(cols=len(idx), cells=dp_cells(n_done, sub_ks))
     tail = state[np.arange(len(idx)), sub_ks]
     pv_max = _exp_longdouble(tail)
     sig_ok = pv_max * bonf[idx] < conf.sig
@@ -865,13 +877,15 @@ def confirm_snv_candidates(rdr, tid: int, chrom: str, ref: bytes,
     cpool = SlabPool.acquire(1)
     rows = batch = None
     try:
-        rows = ingest_region(rdr, pconf, ref, tid, beg=lo, end=hi,
-                             ign_pos=ign_arr, raw=raw, reg_list=reg_list,
-                             pool=cpool)
-        if not len(rows.pos):
-            return out
-        batch = build_snv_batch(rows, rows.raw_flags, lo, hi, ref, chrom,
-                                pconf, vc, pool=cpool)
+        with stagetimer.stage("confirm.reingest"):
+            rows = ingest_region(rdr, pconf, ref, tid, beg=lo, end=hi,
+                                 ign_pos=ign_arr, raw=raw, reg_list=reg_list,
+                                 pool=cpool)
+            if len(rows.pos):
+                batch = build_snv_batch(rows, rows.raw_flags, lo, hi, ref,
+                                        chrom, pconf, vc, pool=cpool)
+            stagetimer.note(cols=0 if batch is None
+                            else len(batch.positions))
         if batch is None:
             return out
         return _confirm_score(out, batch, cands, vc)
