@@ -764,6 +764,7 @@ def _snpcaller_with_screen(probs, depths, alt_counts, bonf, conf: VarcallConf,
     precomputed_mask: the pipelined caller already combined host mask +
     device sub-screen for this chunk (call_snvs_batch).
     """
+    from .. import native
     from ..core import stagetimer
 
     B = probs.shape[0]
@@ -784,8 +785,6 @@ def _snpcaller_with_screen(probs, depths, alt_counts, bonf, conf: VarcallConf,
         return pvalues
     sub = probs[idx]
     if not presorted:
-        from .. import native
-
         with stagetimer.stage("pack_sort"):
             native.sort_errprobs_batch(sub, depths[idx])
     sub_ks = ks[idx]
@@ -793,7 +792,8 @@ def _snpcaller_with_screen(probs, depths, alt_counts, bonf, conf: VarcallConf,
         state, n_done = pruned_prob_dist_batch(sub, depths[idx], sub_ks,
                                                bonf[idx], conf.sig)
         if stagetimer.tracing():
-            stagetimer.note(cols=len(idx), cells=dp_cells(n_done, sub_ks))
+            stagetimer.note(cols=len(idx), cells=dp_cells(n_done, sub_ks),
+                            threads=native.last_dp_threads())
     tail = state[np.arange(len(idx)), sub_ks]
     pv_max = _exp_longdouble(tail)
     sig_ok = pv_max * bonf[idx] < conf.sig

@@ -343,3 +343,97 @@ void lfq_merge_quals(const int32_t *sq, const int32_t *mq,
                  (1 - mp) * (1 - sp) * (1 - bap) * bp;
     }
 }
+
+/* lfq_poissbin_dp_batch with its rows spread over threads.
+ *
+ * Each row is computed by lfq_poissbin_dp_batch itself with B = 1 on the
+ * row's pointers and the batch's Dmax and Kmax, so the state layout is the
+ * batch's and a row's arithmetic is the serial code's: the thread count
+ * never changes a bit of state or n_done.  Rows are claimed from a shared
+ * counter in descending order of their cost bound (the cells the row
+ * would update without an early exit, sum_{n=1..N} (min(n, K) + 1)), so
+ * the heaviest rows start first and a row that exits early frees its
+ * thread at once.  Threads follow pack_threads(), capped by the rows and
+ * by one thread per DP_CELLS_PER_THREAD estimated cells: a small batch
+ * stays on the calling thread.  *threads_used: the threads it ran on, the
+ * calling one included (1 where the batch ran serially).
+ */
+#define DP_CELLS_PER_THREAD ((int64_t)1 << 20)
+
+typedef struct {
+    const double *probs;
+    const int64_t *depths, *ks;
+    const double *bonf;
+    double sig;
+    int64_t B, Dmax, Kmax;
+    double *state;
+    int64_t *n_done;
+    const int64_t *cost; /* (cost, row) pairs, heaviest first */
+    int64_t next;
+} dp_job_t;
+
+static void *dp_worker(void *arg)
+{
+    dp_job_t *j = arg;
+    int64_t i;
+    while ((i = __atomic_fetch_add(&j->next, 1, __ATOMIC_RELAXED)) < j->B) {
+        int64_t b = j->cost[2 * i + 1];
+        lfq_poissbin_dp_batch(j->probs + b * j->Dmax, j->depths + b,
+                              j->ks + b, j->bonf + b, j->sig, 1, j->Dmax,
+                              j->Kmax, j->state + b * (j->Kmax + 1),
+                              j->n_done + b);
+    }
+    return NULL;
+}
+
+/* (cost, row) pairs by descending cost */
+static int dp_cost_cmp(const void *a, const void *b)
+{
+    int64_t x = *(const int64_t *)a, y = *(const int64_t *)b;
+    return x > y ? -1 : x < y;
+}
+
+void lfq_poissbin_dp_batch_mt(
+    const double *probs, const int64_t *depths, const int64_t *ks,
+    const double *bonf, double sig,
+    int64_t B, int64_t Dmax, int64_t Kmax,
+    double *state, int64_t *n_done, int64_t *threads_used)
+{
+    int64_t nth = pack_threads();
+    int64_t *cost = (nth > 1 && B > 1)
+                        ? malloc((size_t)B * 2 * sizeof(int64_t)) : NULL;
+    if (cost) {
+        int64_t total = 0;
+        for (int64_t b = 0; b < B; b++) {
+            int64_t n = depths[b], k = ks[b];
+            int64_t j = n < k ? n : k;
+            cost[2 * b] = j * (j + 1) / 2 + j + (n - j) * (k + 1);
+            cost[2 * b + 1] = b;
+            total += cost[2 * b];
+        }
+        if (nth > B)
+            nth = B;
+        if (nth > total / DP_CELLS_PER_THREAD)
+            nth = total / DP_CELLS_PER_THREAD;
+    }
+    if (!cost || nth < 2) {
+        free(cost);
+        lfq_poissbin_dp_batch(probs, depths, ks, bonf, sig, B, Dmax, Kmax,
+                              state, n_done);
+        *threads_used = 1;
+        return;
+    }
+    qsort(cost, (size_t)B, 2 * sizeof(int64_t), dp_cost_cmp);
+    dp_job_t job = {probs, depths, ks, bonf, sig, B, Dmax, Kmax,
+                    state, n_done, cost, 0};
+    pthread_t tids[64];
+    int started = 0;
+    for (int64_t t = 1; t < nth; t++)
+        if (pthread_create(&tids[started], NULL, dp_worker, &job) == 0)
+            started++;
+    dp_worker(&job);
+    for (int t = 0; t < started; t++)
+        pthread_join(tids[t], NULL);
+    free(cost);
+    *threads_used = started + 1;
+}

@@ -31,6 +31,11 @@ def get_lib():
                 _f64, _i64, _i64, _f64, ctypes.c_double,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _f64, _i64,
             ]
+            lib.lfq_poissbin_dp_batch_mt.argtypes = [
+                _f64, _i64, _i64, _f64, ctypes.c_double,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _f64, _i64,
+                _i64,
+            ]
             lib.lfq_tailsum_batch.argtypes = [
                 _f64, _i64, _i64, ctypes.c_int64, ctypes.c_int64, _f64,
             ]
@@ -57,9 +62,19 @@ def _ptr(a, typ):
     return a.ctypes.data_as(typ)
 
 
+_dp_threads = threading.local()
+
+
+def last_dp_threads():
+    """Threads the calling thread's last poissbin_dp_batch ran its rows
+    on (0 before any)."""
+    return getattr(_dp_threads, "n", 0)
+
+
 def poissbin_dp_batch(probs, depths, ks, bonf, sig):
     """Native batch DP. probs [B,Dmax] f64 C-contiguous; returns
-    (state [B,Kmax+1], n_done [B])."""
+    (state [B,Kmax+1], n_done [B]).  Rows run on the native threads
+    (lfq_poissbin_dp_batch_mt), with the serial DP's bits."""
     lib = get_lib()
     probs = np.ascontiguousarray(probs, dtype=np.float64)
     depths = np.ascontiguousarray(depths, dtype=np.int64)
@@ -71,12 +86,14 @@ def poissbin_dp_batch(probs, depths, ks, bonf, sig):
     Kmax = int(ks.max()) if B else 0
     state = np.empty((B, Kmax + 1), dtype=np.float64)
     n_done = np.empty(B, dtype=np.int64)
+    threads = ctypes.c_int64(1)
     if B:
-        lib.lfq_poissbin_dp_batch(
+        lib.lfq_poissbin_dp_batch_mt(
             _ptr(probs, _f64), _ptr(depths, _i64), _ptr(ks, _i64),
             _ptr(bonf, _f64), float(sig), B, Dmax, Kmax,
-            _ptr(state, _f64), _ptr(n_done, _i64),
+            _ptr(state, _f64), _ptr(n_done, _i64), ctypes.byref(threads),
         )
+    _dp_threads.n = threads.value
     return state, n_done
 
 

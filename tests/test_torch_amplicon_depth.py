@@ -9,9 +9,10 @@ the CPU) and its host-screen engine give the plain reference's records
 and SNV tests exactly, and the records and SNV tests of lofreq_tpu's
 `call` on the same BAM.  The confirm's spans: `confirm.reingest` nests in
 `confirm`, and the `cells` that `exact_dp` notes are what the numpy DP's
-`n_done` gives on the same rows.  The benchmark's four readers of them
-give per-call values on a hand-made span list and None where spans were
-dropped or are missing."""
+`n_done` gives on the same rows, and the deepest DPs spread their rows
+over native threads (the `threads` note).  The benchmark's five readers
+of them give per-call values on a hand-made span list and None where
+spans were dropped or are missing."""
 
 import json
 import os
@@ -34,7 +35,8 @@ from portbench import run as R
 from portbench.gen import inputs, simulate as S
 from portbench.metrics import (_spans, confirm_reingest_s,
                                exact_dp_cols_per_call,
-                               exact_dp_gcells_per_call, exact_dp_s)
+                               exact_dp_gcells_per_call, exact_dp_s,
+                               exact_dp_threaded_pct)
 from portbench.reference import lofreq as REF
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -171,6 +173,15 @@ def test_exact_dp_cells_are_the_numpy_dps_n_done(traced_call):
     assert cells > cols * 1000, "no column ran deep into the DP"
 
 
+def test_traced_call_spreads_the_deepest_dps_over_threads(traced_call):
+    """Every `exact_dp` notes the native threads its rows ran on; the DP
+    of the AF-1.0 columns, 1,500 reads deep, ran on more than one."""
+    spans, _rows = traced_call
+    dps = [s for s in spans if s.name == "exact_dp"]
+    assert dps and all(s.attrs["threads"] >= 1 for s in dps)
+    assert max(s.attrs["threads"] for s in dps) > 1
+
+
 MS = 1_000_000
 CALLER, CONFIRM = 21, 22
 
@@ -274,3 +285,47 @@ def test_find_cell_finds_the_deep_amplicon_cell():
     for m in ("exact_dp_s", "confirm_reingest_s", "exact_dp_cols_per_call",
               "exact_dp_gcells_per_call"):
         assert m in [x["name"] for x in R.metrics_of(bench, CELL, True)]
+
+
+def threaded(spans, threads=(8, 1)):
+    """The spans with `threads` noted on each `exact_dp` in turn."""
+    out, left = [], list(threads) * len(spans)
+    for s in spans:
+        if s.name == "exact_dp" and s.attrs:
+            s = SimpleNamespace(**vars(s))
+            s.attrs = dict(s.attrs, threads=left.pop(0))
+        out.append(s)
+    return out
+
+
+@pytest.mark.parametrize("threads,want", [((8, 1), 75.0), ((1, 3), 25.0),
+                                          ((2, 2), 100.0), ((1, 1), 0.0)])
+def test_threaded_pct_on_hand_made_spans(window, threads, want):
+    """0.6 and 0.2 G cells a call, in DPs on the threads given."""
+    spans = threaded(SPANS, threads)
+    window(spans)
+    assert exact_dp_threaded_pct.read(record(spans, 2)) == \
+        pytest.approx(want)
+
+
+def test_threaded_pct_gives_none_without_threads_or_with_dropped_spans(
+        window):
+    window(SPANS)                       # cells noted, threads not
+    assert exact_dp_threaded_pct.read(record(SPANS, 2)) is None
+    spans = threaded(SPANS)
+    window(spans, dropped=3)
+    assert exact_dp_threaded_pct.read(record(spans, 2)) is None
+    window(spans)
+    assert exact_dp_threaded_pct.read(record(spans, 3)) is None
+    window(None)
+    assert exact_dp_threaded_pct.read(record(spans, 2)) is None
+    bare = one_call(0, 100, noted=False)
+    window(bare)
+    assert exact_dp_threaded_pct.read(record(bare, 1)) is None
+
+
+def test_threaded_pct_reads_in_every_cell():
+    bench = R.load_benchmark(ROOT)
+    for cell in bench["workloads"]:
+        names = [m["name"] for m in R.metrics_of(bench, cell["name"], True)]
+        assert "exact_dp_threaded_pct" in names, cell["name"]

@@ -45,7 +45,8 @@ VERBATIM = [
 C_SOURCES = port_build.SRCS + port_build.DEPS
 # copies the port rewrites in part, and the top-level names (Python) or
 # functions (C, added after the reference's body) that are its own: the
-# window raw fetch serves views of the span cache (raw_view)
+# window raw fetch serves views of the span cache (raw_view); the exact
+# DP spreads its rows over native threads (lfq_poissbin_dp_batch_mt)
 REWRITTEN = {
     "io/bgzf.py": {
         "import threading", "_SPAN_PEAK", "_SPAN_MIN", "_SPAN_BYTES", "_take_base",
@@ -56,6 +57,10 @@ REWRITTEN = {
         "_BAI_CACHE", "_load_bai", "raw_records_for_region", "raw_view",
         "_raw_records"},
     "ingest.c": {"lfq_raw_view"},
+    "native.py": {"get_lib", "_dp_threads", "last_dp_threads",
+                  "poissbin_dp_batch"},
+    "exact_stats.c": {"dp_worker", "dp_cost_cmp",
+                      "lfq_poissbin_dp_batch_mt"},
 }
 # a comment's absolute path to the LoFreq sources: the copies cite them
 # from src/lofreq/ on
