@@ -45,15 +45,6 @@ DISPATCH_STATS = {"dispatched": 0, "columns": 0}
 _stats_lock = threading.Lock()
 
 
-def device_screen_default() -> bool:
-    """True when a CUDA card is present.  LOFREQ_TPU_DEVICE_SCREEN
-    overrides it either way, as in the reference."""
-    override = os.environ.get("LOFREQ_TPU_DEVICE_SCREEN")
-    if override is not None:
-        return override not in ("0", "false", "no", "off", "")
-    return torch.cuda.is_available()
-
-
 def screen_ready(device) -> bool:
     """Make the screen usable on `device`: on CUDA this builds (or loads)
     the kernel library, raising if it cannot."""
@@ -152,13 +143,12 @@ def host_screen_tail(probs, depths, ks, bonf, sig) -> np.ndarray:
     screen_body — top-S largest err probs per row (subset tail = lower
     bound of the full tail), K clipped to KMAX (a clipped tail can rule
     nothing out beyond it), same MARGIN slack — minus the u8
-    quantization (f64 here, and no link to cross).
+    quantization (f64 here).
 
-    This is the fallback engine when the device screen is unavailable
-    (compile still in flight, thin link, no accelerator): without it,
-    every top-k-prescreen survivor lands on the exact confirm pass
-    (measured 10x confirm blow-up on a dark-screen bench run).  It only
-    ever sees prescreen survivors, so B is small."""
+    This is the sub-screen when the device screen is off (no card, or
+    --no-device-screen) and the exact confirm's own screen: without it,
+    every top-k-prescreen survivor would reach the exact DP.  It only
+    ever sees prescreen survivors."""
     probs = np.asarray(probs, dtype=np.float64)
     B, D = probs.shape
     if B == 0:

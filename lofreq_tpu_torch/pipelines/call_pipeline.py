@@ -5,54 +5,61 @@ In-process equivalent of main_call + mpileup + auto-filter
 window becomes a ColumnBatch processed by the batched caller; the default
 filter chain runs in-process at the end.
 
-The port's copy of lofreq_tpu/pipelines/call_pipeline.py.  Every body is
-the reference's apart from run_call, whose screening engines run on the
-port's torch device: the device screen (K1) and the device-BAQ runner
-(K3/K4) on VarcallConf.device, and what the tracer (core/stagetimer.py)
-needs: each call's root span, the stages `call.batch`, `filter` and
-`vcf_write`, and the window builds, raw prefetch and confirms submitted
-under the call's context, so that their spans carry its id.
+The port's fork of lofreq_tpu/pipelines/call_pipeline.py.  run_call
+resolves its engines once (call/engines.py: the device screen K1 and the
+device-BAQ runner K3/K4 on VarcallConf.device, or the host engines) and
+passes them down; it writes none of them into the caller's conf.  What
+the tracer (core/stagetimer.py) needs is here too: each call's root span,
+the stages `call.batch`, `filter` and `vcf_write`, and the window builds,
+raw prefetch and confirms submitted under the call's context, so that
+their spans carry its id.  The window pipeline's sizes are module
+constants; no environment variable changes them.
 """
 
 from __future__ import annotations
 
 import contextvars
-import copy
 import os
 import sys
+import threading
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _fwait
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import defaults as D
 from ..call.caller import (
     CallStats,
     VarcallConf,
     call_vars_batch,
     confirm_snv_candidates,
 )
+from ..call.engines import resolve_engines
 from ..core import stagetimer
-from ..defaults import BAQ_SCREEN_DELTA
 from ..core.phred import prob_to_phred
 from ..filt.filter import FilterConf, MtcFilter, run_filter
 from ..io.bam import BamReader
 from ..io.fasta import Fasta
 from ..io.vcf import VcfWriter, new_header
 from ..pileup.engine import PileupConf, compile_columns, read_passes_filters, rows_from_reads
+from ..pileup.native_ingest import (SlabPool, ingest_region,
+                                    raw_records_for_region,
+                                    trim_raw_to_regions)
 from ..pileup.sourcequal import compute_source_quals
-from ..ops.device_baq import get_runner
-from ..ops.screen import screen_ready
 
-#: position-window width of the streaming pileup.  12.5 kb measured
-#: fastest after the r5 pipeline changes (rotated-order sweep
-#: 6.25k/8k/12.5k/25k/37.5k/50k on the 4-core host: the cheaper sweeps +
-#: executor confirms + span-cached inflation made deeper pipelining win —
-#: 25 kb had been optimal before; med 4.9s -> 3.2s, best 1.76s at the
-#: bench workload).  Output is window-size-invariant (asserted in the
-#: invariance test and by the differentials).
-WINDOW = int(__import__("os").environ.get("LOFREQ_TPU_WINDOW", "12500"))
+#: position-window width of the streaming pileup, the reference's
+#: default.  Output is window-size-invariant (asserted in the invariance
+#: test and by the differentials).
+WINDOW = 12500
+#: window builds in flight on the worker threads while the calling
+#: thread consumes the current batch: one more than the batch in hand
+#: keeps the sweep's pthreads fed through the calling thread's prescreen
+#: and confirm bursts
+PIPE_DEPTH = 2
+#: window confirms in flight on their own threads; their results drain
+#: in order, so the records stay in position order
+CONF_PIPE = 3
 HEARTBEAT_COLS = 100_000  # progress log cadence (cf. plp.c:1434-1438)
 
 
@@ -137,27 +144,21 @@ _EX_PID = None          # fork guard: a child inherits executor OBJECTS
 def _borrow_executor(workers: int):
     """An exclusive ThreadPoolExecutor with `workers` threads, recycled
     across runs so the C ingest's _Thread_local arenas stay warm."""
-    import os as _os
-    import threading as _th
-    from concurrent.futures import ThreadPoolExecutor as _TPE
-
     global _EX_LOCK, _EX_PID
-    pid = _os.getpid()
+    pid = os.getpid()
     if _EX_LOCK is None or _EX_PID != pid:
-        _EX_LOCK = _th.Lock()
+        _EX_LOCK = threading.Lock()
         _EX_POOL.clear()
         _EX_PID = pid
     with _EX_LOCK:
         lst = _EX_POOL.get(workers)
         if lst:
             return lst.pop()
-    return _TPE(workers, thread_name_prefix="lfq-window")
+    return ThreadPoolExecutor(workers, thread_name_prefix="lfq-window")
 
 
 def _return_executor(workers: int, ex) -> None:
-    import os as _os
-
-    if _EX_PID != _os.getpid():
+    if _EX_PID != os.getpid():
         return ex.shutdown(wait=False)
     with _EX_LOCK:
         lst = _EX_POOL.setdefault(workers, [])
@@ -169,84 +170,54 @@ def _return_executor(workers: int, ex) -> None:
 def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
                            window=WINDOW, vconf=None, ign_pos=None,
                            device_baq=None, keep_raw=False):
-    """Yield ColumnBatches via the native ingest engine (csrc/ingest.c)."""
-    import numpy as _np
+    """Yield ColumnBatches via the native ingest engine (csrc/ingest.c).
+    vconf and pconf are the sweep's (Engines.sweep_conf, .sweep_pconf)."""
+    from ..pileup.fast_columns import (_attach_indels, build_snv_batch,
+                                       build_snv_batch_fused,
+                                       supports_fused)
 
-    from ..pileup.engine import compile_columns
-    from ..pileup.fast_columns import build_snv_batch, supports_fused
-    from ..pileup.native_ingest import ingest_region
-
+    # fully-fused ingest->columns path (no row materialization).  Indel
+    # mode runs it too: the per-event rows are re-ingested SPARSELY from
+    # the window's raw bytes at event columns only (interval-list filter),
+    # and the exact per-event attach supersedes the fused sweep's
+    # conservative consensus-indel gate.
     fused = (vconf is not None and supports_fused(vconf)
              and pconf.bed is None)
+    want_indels = fused and not vconf.no_indels and pconf.collect_indels
     lo = rstart if rstart is not None else 0
     hi = rend if rend is not None else len(ref)
     win = (lo // window) * window
 
-    # software-pipelined window builds: PIPE_DEPTH windows in flight on a
-    # small worker pool while the caller consumes the current batch.  The
-    # C ingest/sweep releases the GIL and the device-BAQ wait parks in
-    # jax, so window N's device compute/transfer hides under window N+1's
-    # host sweep.  Only the raw BAM fetch touches the shared reader; a
-    # lock serializes it (SURVEY's decode/compute overlap stage).
-    import threading
-    from concurrent.futures import ThreadPoolExecutor
-
-    # depth 2 measured best at the 25 kb window default (interleaved
-    # sweep 1/2/3/4 on the 4-core bench host: med 3.63/3.15-3.53/3.20-
-    # 3.73/3.85s): one extra in-flight window keeps the sweep's pthread
-    # stripes fed through the consumer's prescreen/confirm bursts, while
-    # deeper pipes oversubscribe the cores.  (The old 100 kb windows
-    # measured best at depth 1 — window size and pipe depth trade
-    # against the same core budget.)
-    PIPE_DEPTH = int(__import__("os").environ.get(
-        "LOFREQ_TPU_PIPE_DEPTH", "2"))
-    # persistent worker threads (borrow/return): the native ingest keeps
-    # tens of MB of grow-only _Thread_local arenas per worker; a fresh
-    # executor per run would kill those threads and re-fault every arena
-    # page on the next run (measured: the dominant remaining source of
-    # per-run kernel time).  Borrowed executors are never shared, so the
-    # per-run pipe-depth semantics are unchanged.
+    # software-pipelined window builds: PIPE_DEPTH windows in flight on
+    # persistent worker threads (borrow/return: the native ingest keeps
+    # tens of MB of grow-only _Thread_local arenas per worker, which a
+    # fresh executor per run would re-fault) while the caller consumes
+    # the current batch.  The C ingest and sweep release the GIL, and so
+    # does the device-BAQ runner's wait on the card, so window N's device
+    # work hides under window N+1's host sweep.  Only the raw BAM fetch
+    # touches the shared reader.
     ex = _borrow_executor(PIPE_DEPTH)
-    rdr_lock = threading.Lock()
-
-    import numpy as _np
-
     ign_arr = None
     if ign_pos:
-        ign_arr = _np.asarray(sorted(ign_pos), dtype=_np.int64)
-
-    from ..pileup.fast_columns import _attach_indels, build_snv_batch_fused
-    from ..pileup.native_ingest import SlabPool, raw_records_for_region
+        ign_arr = np.asarray(sorted(ign_pos), dtype=np.int64)
 
     # generations: one consumed + PIPE_DEPTH in flight; recycled across
     # runs (SlabPool.acquire/release) so repeated calls in one process
     # don't re-fault tens of MB of slab pages every run
     row_pool = SlabPool.acquire(PIPE_DEPTH + 1)
     col_pool = SlabPool.acquire(PIPE_DEPTH + 1)
-    # fully-fused ingest->columns path (no row materialization).  Indel
-    # mode runs it too: the per-event rows are re-ingested SPARSELY from
-    # the window's raw bytes at event columns only (interval-list filter),
-    # and the exact per-event attach supersedes the fused sweep's
-    # conservative consensus-indel gate.
-    fused_snv = fused and vconf is not None
-    want_indels = (fused_snv and not vconf.no_indels
-                   and pconf.collect_indels)
 
     def _attach_sparse(batch, b, e):
-        ev_cols = _np.nonzero((batch.num_ins > 0) | (batch.num_dels > 0))[0]
+        ev_cols = np.nonzero((batch.num_ins > 0) | (batch.num_dels > 0))[0]
         if not len(ev_cols):
             return
-        from ..pileup.native_ingest import ingest_region
-
         ev_pos = batch.positions[ev_cols]
-        brk = _np.nonzero(_np.diff(ev_pos) > 1)[0]
-        starts = ev_pos[_np.concatenate([[0], brk + 1])]
-        ends = ev_pos[_np.concatenate([brk, [len(ev_pos) - 1]])] + 1
-        reg = _np.empty(2 * len(starts), dtype=_np.int64)
+        brk = np.nonzero(np.diff(ev_pos) > 1)[0]
+        starts = ev_pos[np.concatenate([[0], brk + 1])]
+        ends = ev_pos[np.concatenate([brk, [len(ev_pos) - 1]])] + 1
+        reg = np.empty(2 * len(starts), dtype=np.int64)
         reg[0::2] = starts
         reg[1::2] = ends
-        from ..pileup.native_ingest import trim_raw_to_regions
-
         raw_ev = batch.raw
         trimmed = trim_raw_to_regions(raw_ev, tid, reg)
         if trimmed is not None:
@@ -297,11 +268,7 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
             raise r
         return r
 
-    from ..core import stagetimer
-
     def _fused_window(w):
-        from ..core import stagetimer
-
         b, e = max(w, lo), min(w + window, hi)
         raw = _take_raw(w)
         if not raw:
@@ -323,8 +290,6 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
                                  raw=raw, ign_pos=ign_arr,
                                  device_baq=device_baq, pool=row_pool,
                                  keep_raw=keep_raw)
-            from ..pileup.fast_columns import build_snv_batch
-
             batch = build_snv_batch(rows, rows.raw_flags, b, e, ref,
                                     chrom, pconf, vconf, pool=col_pool)
             if batch is not None:
@@ -334,49 +299,42 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
     def _submit(w):
         # under the call's context, so the build's spans carry its id
         run = contextvars.copy_context().run
-        if fused_snv:
+        if fused:
             return ex.submit(run, _fused_window, w)
         return ex.submit(run, ingest_region, rdr, pconf, ref, tid,
                          beg=max(w, lo), end=min(w + window, hi),
                          ign_pos=ign_arr, device_baq=device_baq,
                          pool=row_pool, keep_raw=keep_raw)
 
-    from ..core import stagetimer
-
     pf = None
     futs = None
     try:
-        if fused_snv:
-            from collections import deque
-
-            windows = list(range(win, hi, window))
-            pf = threading.Thread(target=contextvars.copy_context().run,
-                                  args=(_prefetcher, windows),
-                                  name="raw-prefetch", daemon=True)
-            pf.start()
-            futs = deque()
-            w = win
-            while w < hi and len(futs) < PIPE_DEPTH:
+        if not fused:
+            yield from _native_window_loop(
+                _submit(win) if win < hi else None, _submit, win, hi,
+                window, lo, chrom, ref, pconf)
+            return
+        windows = list(range(win, hi, window))
+        pf = threading.Thread(target=contextvars.copy_context().run,
+                              args=(_prefetcher, windows),
+                              name="raw-prefetch", daemon=True)
+        pf.start()
+        futs = deque()
+        w = win
+        while w < hi and len(futs) < PIPE_DEPTH:
+            futs.append(_submit(w))
+            w += window
+        while futs:
+            with stagetimer.stage("ingest_wait"):
+                batch = futs.popleft().result()
+            # refill BEFORE the consumer crunches this batch so the
+            # pipe stays PIPE_DEPTH deep during consumption
+            if w < hi:
                 futs.append(_submit(w))
                 w += window
-            while futs:
-                with stagetimer.stage("ingest_wait"):
-                    batch = futs.popleft().result()
-                # refill BEFORE the consumer crunches this batch so the
-                # pipe stays PIPE_DEPTH deep during consumption
-                if w < hi:
-                    futs.append(_submit(w))
-                    w += window
-                if batch is not None:
-                    yield batch
-            pf.join()
-            return
-        fut = _submit(win) if win < hi else None
-        if True:
-            for _batch in _native_window_loop(
-                    fut, _submit, win, hi, window, lo, fused, rdr, tid,
-                    chrom, ref, pconf, vconf, col_pool):
-                yield _batch
+            if batch is not None:
+                yield batch
+        pf.join()
     finally:
         # stop + unblock a parked prefetcher and any worker blocked in
         # _take_raw before waiting out in-flight window builds
@@ -384,13 +342,11 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
             raw_stop[0] = True
             raw_q.clear()
             raw_cv.notify_all()
-        if fused_snv:
+        if fused:
             # the executor is returned for reuse, NOT shut down — so the
             # in-flight futures must be fully drained first (a zombie
             # build writing into released slab pools would corrupt the
             # next run that recycles them)
-            from concurrent.futures import wait as _fwait
-
             if futs:
                 for f in futs:
                     f.cancel()
@@ -399,43 +355,28 @@ def _native_window_batches(rdr, tid, chrom, ref, pconf, rstart, rend,
                 pf.join()
             _return_executor(PIPE_DEPTH, ex)
         else:
-            # legacy row path: in-flight futures aren't tracked here, so
-            # a real shutdown remains the completion barrier
+            # row path: in-flight futures aren't tracked here, so a real
+            # shutdown remains the completion barrier
             ex.shutdown(wait=True)
         SlabPool.release(row_pool)
         SlabPool.release(col_pool)
 
 
-def _native_window_loop(fut, submit, win, hi, window, lo, fused, rdr, tid,
-                        chrom, ref, pconf, vconf, col_pool=None):
-    import numpy as _np
-
-    from ..pileup.engine import compile_columns
-    from ..pileup.fast_columns import build_snv_batch
-
-    from ..core import stagetimer
-
+def _native_window_loop(fut, submit, win, hi, window, lo, chrom, ref,
+                        pconf):
+    """The row path's windows (a BED, or the median def_alt_bq): each
+    window's rows, masked to the window and the BED, compiled in Python."""
     while win < hi:
         win_e = win + window
         with stagetimer.stage("ingest_wait"):
             rows = fut.result()
         if win_e < hi:
             fut = submit(win_e)
-        if fused and len(rows.pos):
-            with stagetimer.stage("columns"):
-                batch = build_snv_batch(rows, rows.raw_flags, max(win, lo),
-                                        min(win_e, hi), ref, chrom, pconf,
-                                        vconf, pool=col_pool)
-            if batch is not None:
-                batch.raw = getattr(rows, "raw", None)
-                yield batch
-            win = win_e
-            continue
         if len(rows.pos):
             keep = (rows.pos >= max(win, lo)) & (rows.pos < min(win_e, hi))
             if pconf.bed is not None:
                 keep &= pconf.bed.overlap_mask(chrom, rows.pos)
-            if _np.any(keep):
+            if np.any(keep):
                 for name in ("pos", "nt4", "bq", "baq", "mq", "sq", "strand",
                              "is_del", "is_refskip", "is_head", "is_tail",
                              "indel", "iq", "dq", "iaq", "daq", "has_ai",
@@ -448,8 +389,6 @@ def _native_window_loop(fut, submit, win, hi, window, lo, fused, rdr, tid,
 
 
 def _can_use_native(bam_path, ign_pos, pconf) -> bool:
-    import os as _os
-
     from ..io.bgzf import is_bgzf
 
     # ign-list for source-qual is supported natively (sorted per-chrom
@@ -460,7 +399,7 @@ def _can_use_native(bam_path, ign_pos, pconf) -> bool:
     except OSError:
         return False
     bai = str(bam_path) + ".bai"
-    if not _os.path.exists(bai):
+    if not os.path.exists(bai):
         try:
             from ..io.bai import build_bai
 
@@ -485,21 +424,21 @@ def run_call(
     """Run variant calling; returns unfiltered variants + stats.
 
     The reference's body (lofreq_tpu/pipelines/call_pipeline.py:run_call),
-    with both screening engines: device BAQ when vconf.device_baq_on
-    (--device-baq), else host no-BAQ.  vconf must be the port's
-    VarcallConf (VarcallConf.from_reference converts a reference conf).
-    Alone, it is one call of the tracer (stagetimer.call); its window
-    builds, raw prefetch and confirms run under the call's context."""
+    with the engines resolve_engines picks once, before the sweep starts:
+    the device screen and the device BAQ must be usable then, not at the
+    first column that survives the prescreen.  Of the caller's vconf it
+    changes only the reference's counters bonf_subst and bonf_indel.
+    vconf must be the port's VarcallConf (VarcallConf.from_reference
+    converts a reference conf).  Alone, it is one call of the tracer
+    (stagetimer.call); its window builds, raw prefetch and confirms run
+    under the call's context."""
     vconf = vconf if vconf is not None else VarcallConf()
     if not isinstance(vconf, VarcallConf):
         raise TypeError("run_call needs lofreq_tpu_torch's VarcallConf; "
                         "convert with VarcallConf.from_reference")
-    if vconf.device_screen_on():
-        # the device (K1 or its plain version) must be usable before the
-        # sweep starts, not at the first column that survives the prescreen
-        screen_ready(vconf.screen_device())
     pconf = pconf or PileupConf()
     pconf.bed = bed
+    engines = resolve_engines(vconf, pconf, bed)
     res = CallResult()
     fa = Fasta(ref_path)
     rdr = BamReader(bam_path)
@@ -528,38 +467,12 @@ def run_call(
             chrom_ign = None
             if ign_pos is not None and pconf.use_sq:
                 chrom_ign = ign_pos.get(chrom)
-            device_baq = None
-            screen_ctx = None
-            sweep_pconf = pconf
-            # a reused conf object may carry the flags from a previous run
-            vconf.baq_screen_null = False
-            vconf.baq_screen_bias = 0
-            if pconf.bed is None and vconf.baq_screen_config_ok(pconf) \
-                    and os.environ.get(
-                        "LOFREQ_TPU_BAQ_SCREEN", "1") != "0":
-                if vconf.device_baq_on(pconf):
-                    # device BAQ: eligible reads get f32 BAQ from the card
-                    # (K3/K4), deflated by BAQ_SCREEN_DELTA in the merge;
-                    # the rest keep the exact C BAQ.  The screen must be
-                    # usable (screen_ready raises otherwise)
-                    screen_ready(vconf.screen_device())
-                    device_baq = get_runner(ext_baq=pconf.ext_baq,
-                                            device=vconf.screen_device())
-                    vconf.baq_screen_bias = BAQ_SCREEN_DELTA
-                else:
-                    # host no-BAQ screening: the sweep skips the C BAQ
-                    # (its err probs are per-base lower bounds)
-                    vconf.baq_screen_null = True
-                    sweep_pconf = copy.copy(pconf)
-                    sweep_pconf.use_baq = False
-                # either way the prescreen and the sub-screen discard
-                # provably insignificant columns, and candidate clusters
-                # are re-scored with the exact C BAQ
-                screen_ctx = []
-            # window confirms run concurrently with later windows' ingest
-            # and screen; results drain FIFO, so res.vars stays in order
-            CONF_PIPE = int(os.environ.get("LOFREQ_TPU_CONFIRM_PIPE", "3"))
-            conf_ex = _borrow_executor(max(CONF_PIPE, 1)) \
+            # a screening pass: the prescreen and the sub-screen discard
+            # provably insignificant columns, and the candidate clusters
+            # are re-scored with the exact C BAQ on the confirm threads,
+            # concurrently with later windows' sweeps
+            screen_ctx = [] if engines.screening_pass else None
+            conf_ex = _borrow_executor(CONF_PIPE) \
                 if screen_ctx is not None else None
 
             def _timed_confirm(cands, raw):
@@ -590,13 +503,14 @@ def run_call(
 
             try:
                 for batch in _native_window_batches(
-                        rdr, tid, chrom, ref, sweep_pconf,
-                        rstart, rend, window=WINDOW, vconf=vconf,
-                        ign_pos=chrom_ign, device_baq=device_baq,
+                        rdr, tid, chrom, ref, engines.sweep_pconf,
+                        rstart, rend, window=WINDOW,
+                        vconf=engines.sweep_conf, ign_pos=chrom_ign,
+                        device_baq=engines.device_baq,
                         keep_raw=screen_ctx is not None):
                     with stagetimer.stage("call.batch"):
                         vs = call_vars_batch(batch, vconf, res.stats,
-                                             screen_ctx=screen_ctx)
+                                             screen_ctx, engines.screen)
                     fut = None
                     if screen_ctx:
                         fut = conf_ex.submit(contextvars.copy_context().run,
@@ -616,7 +530,7 @@ def run_call(
                     # futures first
                     _fwait([f for _vs, f, _n, _p in pending
                             if f is not None])
-                    _return_executor(max(CONF_PIPE, 1), conf_ex)
+                    _return_executor(CONF_PIPE, conf_ex)
             continue
 
         if region:
@@ -651,7 +565,8 @@ def run_call(
         for batch in _window_batches(prepared_reads(), chrom, ref, pconf,
                                      rstart, rend, window=WINDOW):
             with stagetimer.stage("call.batch"):
-                vs = call_vars_batch(batch, vconf, res.stats)
+                vs = call_vars_batch(batch, vconf, res.stats,
+                                     screen=engines.screen)
             res.vars.extend(vs)
             if progress:
                 progress(chrom, int(batch.positions[-1]))

@@ -16,7 +16,9 @@ bodies; four things differ, all about workers that use the card:
 - The reference resolves its device gate once before forking, so that
   forked workers inherit the cached decision and its link probe.  The
   port has no probe: the parent resolves the device screen in the
-  workers' conf (resolve_engines), so no worker asks torch for the card.
+  workers' conf (resolve_engines, through call/engines.py), so no worker
+  asks torch for the card.  It decides without the BED, as the workers'
+  PileupConf fields leave it out.
 - A CUDA context does not survive fork: a child forked after its parent
   initialised CUDA cannot use the card.  So the pool starts by spawn
   whenever a worker will run the device screen or the device BAQ on
@@ -144,14 +146,13 @@ def _ready(vconf, pconf):
     kernel library (built or loaded; raises if it cannot be) and a CUDA
     context.  Returns the wall-clock time it was done at on the first
     call, else None."""
+    from ..call.engines import resolve_engines as resolve
+
     if os.getpid() in _READY_AT:
         return None
-    if vconf.device_screen_on() or vconf.device_baq_on(pconf):
-        from ..ops.screen import screen_ready
-
-        dev = vconf.screen_device()
-        screen_ready(dev)
-        torch.zeros(1, device=dev)
+    engines = resolve(vconf, pconf)
+    if engines.screen is not None or engines.device_baq is not None:
+        torch.zeros(1, device=vconf.screen_device())
     _READY_AT[os.getpid()] = time.time()
     return _READY_AT[os.getpid()]
 
@@ -188,15 +189,14 @@ def resolve_engines(vconf_kw, pconf_kw):
     """The workers' conf fields with the device screen resolved here
     (None = on where a card is present, or as LOFREQ_TPU_DEVICE_SCREEN
     says), and whether a worker will use the card: the device screen or
-    the device BAQ on, on a CUDA device."""
+    the device BAQ on, on a CUDA device.  Builds and loads nothing."""
     from ..call.caller import VarcallConf
+    from ..call.engines import resolve_engines as resolve
     from ..pileup.engine import PileupConf
 
-    vconf = VarcallConf(**vconf_kw)
-    screen = vconf.device_screen_on()
-    engines = screen or vconf.device_baq_on(PileupConf(**pconf_kw))
-    on_card = engines and torch.device(vconf.device).type == "cuda"
-    return dict(vconf_kw, use_device_screen=screen), on_card
+    engines = resolve(VarcallConf(**vconf_kw), PileupConf(**pconf_kw),
+                      ready=False)
+    return engines.worker_kw(vconf_kw), engines.on_card
 
 
 def start_method(on_card: bool) -> str:

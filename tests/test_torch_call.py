@@ -19,16 +19,18 @@
    --device-baq on every golden case.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from lofreq_tpu.call.caller import VarcallConf as RefConf
-from lofreq_tpu.defaults import BAQ_SCREEN_DELTA
 from lofreq_tpu.pileup.engine import PileupConf
 from lofreq_tpu.pipelines.call_pipeline import run_call as ref_run_call
 from lofreq_tpu_torch import cli as port_cli
 from lofreq_tpu_torch.call.caller import VarcallConf
+from lofreq_tpu_torch.call.engines import resolve_engines
 from lofreq_tpu_torch.ops import cuda_poissbin, device_baq
 from lofreq_tpu_torch.ops import screen as port_screen
 from lofreq_tpu_torch.pipelines.call_pipeline import run_call
@@ -108,7 +110,7 @@ def test_from_reference_copies_every_field():
                  "bonf_subst"):
         assert getattr(conf, name) == getattr(ref, name)
     assert conf.device == "cpu" and conf.screen_device().type == "cpu"
-    assert conf.device_baq_on(None) is False
+    assert resolve_engines(conf, PileupConf()).device_baq is None
     assert np.float32(conf.sig) == conf.sig
 
 
@@ -213,15 +215,16 @@ def test_port_device_baq_matches_reference(name, tmp_path):
     def pconf():
         return PileupConf(**spec.get("pconf", {}))
 
+    exact_conf = RefConf(use_device_screen=False, use_device_baq=False,
+                         **vkw)
     exact = ref_run_call(art["bam"], art["fa"], pconf=pconf(), **kw,
-                         vconf=RefConf(use_device_screen=False,
-                                       use_device_baq=False, **vkw))
+                         vconf=exact_conf)
     ref_dev = ref_run_call(art["bam"], art["fa"], pconf=pconf(), **kw,
                            vconf=RefConf(use_device_screen=True,
                                          use_device_baq=True, **vkw))
     conf = VarcallConf(use_device_screen=True, use_device_baq=True,
                        device="cpu", **vkw)
-    assert conf.device_baq_on(pconf())
+    assert resolve_engines(conf, pconf()).device_baq is not None
     before = device_baq.RUN_STATS["reads"]
     with device_baq.count_extracted_reads() as extracted:
         res = run_call(art["bam"], art["fa"], vconf=conf, pconf=pconf(),
@@ -229,8 +232,15 @@ def test_port_device_baq_matches_reference(name, tmp_path):
     # every eligible read of every window went through the runner
     assert device_baq.RUN_STATS["reads"] - before == extracted["eligible"]
     assert extracted["eligible"] > 0
-    assert conf.baq_screen_bias == BAQ_SCREEN_DELTA
-    assert not conf.baq_screen_null
+    # run_call leaves every engine field of the caller's conf as given,
+    # and advances only the reference's counters, as the reference does
+    assert dataclasses.asdict(conf) == dict(
+        dataclasses.asdict(VarcallConf(use_device_screen=True,
+                                       use_device_baq=True, device="cpu",
+                                       **vkw)),
+        bonf_subst=conf.bonf_subst, bonf_indel=conf.bonf_indel)
+    assert (conf.bonf_subst, conf.bonf_indel) == \
+        (exact_conf.bonf_subst, exact_conf.bonf_indel)
     assert len(exact.vars) > 0
     for other in (exact, ref_dev):
         assert _records(res) == _records(other)
@@ -238,6 +248,35 @@ def test_port_device_baq_matches_reference(name, tmp_path):
         assert res.stats.num_indel_tests == other.stats.num_indel_tests
     if vkw:
         assert any("INDEL" in (v.info or "") for v in res.vars)
+
+
+def test_reused_conf_gives_the_reference_records(tmp_path):
+    """One conf reused for a --device-baq run, then a default run (the
+    host no-BAQ engine), then a run over a BED (no screening engine): each
+    gives the reference's records, so no run leaves its engines in the
+    conf for the next."""
+    from lofreq_tpu.io.bed import BedIndex as RefBed
+    from lofreq_tpu_torch.io.bed import BedIndex
+
+    art = simulate(str(tmp_path), genome_len=12000, depth=60, seed=21)
+    bed = tmp_path / "t.bed"
+    bed.write_text(f"{art['chrom']}\t1000\t9000\n")
+    conf = VarcallConf(use_device_screen=True, use_device_baq=True,
+                       device="cpu")
+    for use_device_baq, port_bed, ref_bed in (
+            (True, None, None), (False, None, None),
+            (False, BedIndex.read(str(bed)), RefBed.read(str(bed)))):
+        # the dynamic-Bonferroni counters accumulate on a reused conf, in
+        # the reference too
+        conf.bonf_subst = conf.bonf_indel = 1
+        conf.use_device_baq = use_device_baq
+        got = run_call(art["bam"], art["fa"], vconf=conf, bed=port_bed)
+        want = ref_run_call(art["bam"], art["fa"], bed=ref_bed,
+                            vconf=RefConf(use_device_screen=False,
+                                          use_device_baq=False))
+        assert _records(got) == _records(want) and len(want.vars) > 0
+        assert got.stats.num_snv_tests == want.stats.num_snv_tests
+        assert (conf.baq_screen_null, conf.baq_screen_bias) == (False, 0)
 
 
 def test_cli_profile_writes_trace(tmp_path, monkeypatch, capsys):

@@ -208,15 +208,3 @@ def test_dispatch_stats_count():
                                            0.01, "cpu"))
     assert S.DISPATCH_STATS["dispatched"] == before["dispatched"] + 1
     assert S.DISPATCH_STATS["columns"] == before["columns"] + 40
-
-
-@pytest.mark.parametrize("val,want", [("0", False), ("off", False),
-                                      ("", False), ("1", True)])
-def test_device_screen_default_override(monkeypatch, val, want):
-    monkeypatch.setenv("LOFREQ_TPU_DEVICE_SCREEN", val)
-    assert S.device_screen_default() is want
-
-
-def test_device_screen_default_follows_cuda(monkeypatch):
-    monkeypatch.delenv("LOFREQ_TPU_DEVICE_SCREEN", raising=False)
-    assert S.device_screen_default() is torch.cuda.is_available()
